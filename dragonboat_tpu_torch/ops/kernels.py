@@ -1,0 +1,746 @@
+"""Kernels of the batched quorum engine: plain PyTorch versions and the
+wrappers that launch the hand-written CUDA kernels.
+
+Counterpart: ``dragonboat_tpu/ops/kernels.py``.  Each ``*_impl`` function
+and helper here follows its JAX twin line by line and is functional (it
+returns new tensors).  The entry points :func:`quorum_step`,
+:func:`quorum_step_dense` and :func:`quorum_multiround` keep the
+reference's names, argument order and static flags, and update the state
+tensors IN PLACE where the reference donated them (``donate_argnums=(0,)``):
+the returned ``StepOutputs.state`` is the caller's state, and
+``StepOutputs.committed`` is its ``committed`` tensor.
+
+Routing is by the device the state lies on, and by nothing else:
+
+* CUDA tensors launch the kernel in ``csrc/`` (built at first use, see
+  :mod:`._build`) on the current stream, or raise;
+* CPU tensors run the plain version, whose result is copied into the
+  state tensors.
+
+Each wrapper counts its kernel launches (:func:`launch_counts`).
+
+Contract on event indexes: the sparse step drops events whose row or slot
+lies outside ``[0, G) x [0, P)``.  The JAX step routes invalid events to
+row G and drops them too, but wraps a NEGATIVE valid index the way numpy
+indexing does; the engine never stages one.  A batch holds each (row,
+slot) vote cell at most once (``BatchedQuorumEngine.vote`` dedups), and a
+round recycles each row at most once (``stage_recycle`` enforces it): the
+reference leaves duplicates unspecified, and so does the port.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import _build
+from .state import CANDIDATE, INDEX_MIN, LEADER, VOTE_NONE, QuorumState
+
+I32 = torch.int32
+I8 = torch.int8
+BOOL = torch.bool
+
+# Width of the top-K egress of the telemetry fold (a later slice); kept so
+# the entry points take the reference's ``telem_k`` argument.
+TELEM_TOPK = 8
+
+# The widest peer axis the CUDA kernels take (QS_MAX_GENERIC_P in
+# csrc/quorum.cuh); the plain versions take any width.
+MAX_KERNEL_PEERS = 32
+
+# Launch-flag bits of csrc/quorum.cuh.
+_F_DO_TICK, _F_TRACK_CONTACT, _F_HAS_VOTES, _F_HAS_CHURN = 1, 2, 4, 8
+
+# Optimal compare-exchange networks (Knuth TAOCP v3 §5.3.4) per width;
+# each pair (i, j) with i < j exchanges so the LARGER value lands at i —
+# after the full network the columns are sorted descending.
+_SORT_NETWORKS = {
+    1: [],
+    2: [(0, 1)],
+    3: [(0, 1), (1, 2), (0, 1)],
+    4: [(0, 1), (2, 3), (0, 2), (1, 3), (1, 2)],
+    5: [(0, 1), (3, 4), (2, 4), (2, 3), (1, 4), (0, 3), (0, 2), (1, 3),
+        (1, 2)],
+    6: [(1, 2), (4, 5), (0, 2), (3, 5), (0, 1), (3, 4), (2, 5), (0, 3),
+        (1, 4), (2, 4), (1, 3), (2, 3)],
+    7: [(1, 2), (3, 4), (5, 6), (0, 2), (3, 5), (4, 6), (0, 1), (4, 5),
+        (2, 6), (0, 4), (1, 5), (0, 3), (2, 5), (1, 3), (2, 4), (2, 3)],
+    8: [(0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+        (1, 2), (5, 6), (0, 4), (3, 7), (1, 5), (2, 6), (1, 4), (3, 6),
+        (2, 4), (3, 5), (3, 4)],
+}
+
+_LAUNCHES = {"quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset (a CPU call runs
+    the plain version and counts nothing)."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+class TickFlags(NamedTuple):
+    elect_due: torch.Tensor      # (G,) bool — non-leader election timeout fired
+    hb_due: torch.Tensor         # (G,) bool — leader heartbeat due
+    checkq_demote: torch.Tensor  # (G,) bool — CheckQuorum window: leader re-checks
+
+
+class StepOutputs(NamedTuple):
+    """Outputs of one step (reference ``kernels.StepOutputs``).  The plane
+    outputs after ``flags`` belong to later slices and stay None."""
+
+    state: QuorumState
+    committed: torch.Tensor    # (G,) i32 rel — post-step commit watermark
+    won: torch.Tensor          # (G,) bool — candidate reached vote quorum
+    lost: torch.Tensor         # (G,) bool — candidate rejected by quorum
+    flags: TickFlags
+    read_done_count: Optional[torch.Tensor] = None
+    read_done_index: Optional[torch.Tensor] = None
+    kv_read_val: Optional[torch.Tensor] = None
+    kv_read_index: Optional[torch.Tensor] = None
+    kv_applied: Optional[torch.Tensor] = None
+    telem: Optional[object] = None
+
+
+def _off_slice(has_reads=False, has_kv=False, has_hier=False, has_telem=False):
+    """Raise for a plane the port does not carry yet (ROADMAP.md queue A)."""
+    for on, what in (
+        (has_reads, "has_reads: the device read plane"),
+        (has_kv, "has_kv: the device state machine (devsm) plane"),
+        (has_hier, "has_hier: the hierarchical commit plane"),
+        (has_telem, "has_telem: the device telemetry fold"),
+    ):
+        if on:
+            raise NotImplementedError(
+                f"{what} is ported in a later slice (ROADMAP.md queue A)"
+            )
+
+
+def _scalar(value: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+# ----------------------------------------------------------------------
+# plain versions (counterparts of the JAX functions, line by line)
+# ----------------------------------------------------------------------
+
+
+def _kth_largest(values: torch.Tensor, mask: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Row-wise k-th largest of masked values; k is 1-based, (G,).
+
+    P <= 8: an optimal compare-exchange network over the P columns, then
+    column k-1 by a where-chain (column 0 when k is out of range).  Wider
+    P: the rank form — each element's descending rank is the count of
+    elements that beat it (value, then slot index as the tie-break), and
+    the element of rank k-1 is taken by a masked sum.  Precondition
+    ``1 <= k <= P``; out-of-range k is unspecified, and the two forms
+    disagree on it (as in the reference)."""
+    masked = torch.where(mask, values, _scalar(INDEX_MIN, values))
+    p = masked.shape[1]
+    ksel = k - 1
+    if p in _SORT_NETWORKS:
+        cols = [masked[:, i] for i in range(p)]
+        for i, j in _SORT_NETWORKS[p]:
+            hi = torch.maximum(cols[i], cols[j])
+            cols[j] = torch.minimum(cols[i], cols[j])
+            cols[i] = hi
+        out = cols[0]
+        for i in range(1, p):  # cols sorted descending; pick column k-1
+            out = torch.where(ksel == i, cols[i], out)
+        return out
+    v_i = masked[:, :, None]  # candidate
+    v_j = masked[:, None, :]  # competitor
+    slot = torch.arange(p, dtype=I32, device=masked.device)
+    beats = (v_j > v_i) | (
+        (v_j == v_i) & (slot[None, None, :] < slot[None, :, None])
+    )
+    rank = beats.sum(2, dtype=I32)  # 0-based, descending, unique
+    sel = rank == ksel[:, None]
+    return torch.where(sel, masked, 0).sum(1, dtype=I32)
+
+
+def _self_column(match: torch.Tensor, self_slot: torch.Tensor) -> torch.Tensor:
+    """``match[g, self_slot[g]]`` for every group as a one-hot masked sum;
+    an out-of-range ``self_slot`` selects nothing and gives 0."""
+    p = match.shape[1]
+    sel = self_slot[:, None] == torch.arange(p, dtype=I32, device=match.device)
+    return torch.where(sel, match, 0).sum(1, dtype=I32)
+
+
+def commit_quorum(match: torch.Tensor, voting: torch.Tensor, quorum: torch.Tensor) -> torch.Tensor:
+    """Quorum match index per group (scalar twin: ``Raft.try_commit``)."""
+    return _kth_largest(match, voting, quorum)
+
+
+def vote_tally(votes: torch.Tensor, voting: torch.Tensor, quorum: torch.Tensor):
+    """(granted, rejected) counts per group (twin: ``handle_vote_resp``)."""
+    granted = ((votes == 1) & voting).sum(1, dtype=I32)
+    rejected = ((votes == 0) & voting).sum(1, dtype=I32)
+    return granted, rejected
+
+
+def check_quorum(active, voting, self_slot, quorum):
+    """(has_quorum, cleared_active) per group (twin: ``leader_has_quorum``):
+    counts self plus recently-active voters; voters' activity is consumed."""
+    p = active.shape[1]
+    self_onehot = self_slot[:, None] == torch.arange(p, dtype=I32, device=active.device)
+    count = ((active | self_onehot) & voting).sum(1, dtype=I32)
+    cleared = active & ~voting
+    return count >= quorum, cleared
+
+
+def tick_step(st: QuorumState):
+    """Advance per-group clocks one tick (twin: ``Raft.tick``); returns the
+    new state and the :class:`TickFlags`."""
+    live = st.live
+    is_leader = (st.node_state == LEADER) & live
+    election_tick = torch.where(live, st.election_tick + 1, st.election_tick)
+    # non-leader: election timeout (raft.go:568-592)
+    elect_due = live & ~is_leader & st.electable & (election_tick >= st.rand_timeout)
+    # leader: CheckQuorum window (raft.go:594-623)
+    checkq_due = is_leader & (election_tick >= st.election_timeout)
+    election_tick = torch.where(elect_due | checkq_due, 0, election_tick)
+    _, cleared_active = check_quorum(st.active, st.voting, st.self_slot, st.quorum)
+    run_checkq = checkq_due & st.check_quorum_on
+    # fires on every window expiry: the scalar CHECK_QUORUM handler decides
+    checkq_demote = run_checkq
+    active = torch.where(run_checkq[:, None], cleared_active, st.active)
+    heartbeat_tick = torch.where(is_leader, st.heartbeat_tick + 1, st.heartbeat_tick)
+    hb_due = is_leader & (heartbeat_tick >= st.heartbeat_timeout)
+    heartbeat_tick = torch.where(hb_due, 0, heartbeat_tick)
+    st = st._replace(
+        election_tick=election_tick, heartbeat_tick=heartbeat_tick, active=active
+    )
+    return st, TickFlags(elect_due, hb_due, checkq_demote)
+
+
+def _finish_step(st, match, next_, active, votes, election_tick, last_index,
+                 do_tick: bool) -> StepOutputs:
+    """Tally/commit/tick tail shared by the sparse and dense steps."""
+    granted, rejected = vote_tally(votes, st.voting, st.quorum)
+    is_cand = (st.node_state == CANDIDATE) & st.live
+    won = is_cand & (granted >= st.quorum)
+    lost = is_cand & (rejected >= st.quorum)
+    q = commit_quorum(match, st.voting, st.quorum)
+    is_leader = (st.node_state == LEADER) & st.live
+    # only current-term entries commit by counting: q >= term_start
+    can_commit = is_leader & (q > st.committed) & (q >= st.term_start)
+    committed = torch.where(can_commit, q, st.committed)
+    st = st._replace(
+        match=match, next=next_, active=active, votes=votes,
+        committed=committed, last_index=last_index, election_tick=election_tick,
+    )
+    if do_tick:
+        st, flags = tick_step(st)
+    else:
+        zeros = torch.zeros_like(won)
+        flags = TickFlags(zeros, zeros, zeros)
+    return StepOutputs(st, committed, won, lost, flags)
+
+
+def quorum_step_impl(
+    st: QuorumState,
+    ack_g, ack_p, ack_val, ack_valid,
+    vote_g, vote_p, vote_grant, vote_valid,
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_hier: bool = False,
+    has_telem: bool = False,
+    telem_k: int = TELEM_TOPK,
+    has_reads: bool = False,
+    has_kv: bool = False,
+) -> StepOutputs:
+    """One sparse round: scatter-max ack ingest, contact, first-wins votes,
+    then the tail.  Functional; see the module docstring on indexes."""
+    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    g_total, p = st.match.shape
+    ag, ap = ack_g.long(), ack_p.long()
+    row_ok = ack_valid & (ag >= 0) & (ag < g_total)
+    cell_ok = row_ok & (ap >= 0) & (ap < p)
+    cells = (ag * p + ap)[cell_ok]
+    # remote.try_update keeps only forward progress: max is exact
+    match = st.match.reshape(-1).clone().scatter_reduce_(
+        0, cells, ack_val[cell_ok], reduce="amax", include_self=True
+    ).reshape(g_total, p)
+    next_ = torch.maximum(st.next, match + 1)
+    active = st.active.clone()
+    active.view(-1)[cells] = True
+    if track_contact:
+        contacted = torch.zeros((g_total,), dtype=BOOL, device=match.device)
+        contacted[ag[row_ok]] = True
+        nonleader = (st.node_state != LEADER) & st.live
+        election_tick = torch.where(contacted & nonleader, 0, st.election_tick)
+    else:
+        election_tick = st.election_tick
+    last_index = torch.maximum(st.last_index, _self_column(match, st.self_slot))
+    if has_votes:
+        vg, vp = vote_g.long(), vote_p.long()
+        v_ok = vote_valid & (vg >= 0) & (vg < g_total) & (vp >= 0) & (vp < p)
+        vcells = (vg * p + vp)[v_ok]
+        flat = st.votes.reshape(-1)
+        cur = flat[vcells]
+        newv = torch.where(cur == VOTE_NONE, vote_grant[v_ok], cur)
+        votes = flat.clone()
+        votes[vcells] = newv
+        votes = votes.reshape(g_total, p)
+    else:
+        votes = st.votes
+    return _finish_step(
+        st, match, next_, active, votes, election_tick, last_index, do_tick
+    )
+
+
+def quorum_step_dense_impl(
+    st: QuorumState,
+    ack_max, ack_touched, vote_new,
+    read_stage_idx=None, read_stage_cnt=None, read_ack=None,
+    kv_ent_idx=None, kv_ent_key=None, kv_ent_val=None, kv_read_key=None,
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_reads: bool = False,
+    has_kv: bool = False,
+    has_hier: bool = False,
+    has_telem: bool = False,
+    telem_k: int = TELEM_TOPK,
+) -> StepOutputs:
+    """Dense-ingestion twin of :func:`quorum_step_impl`: ``ack_max`` holds
+    0 in untouched cells, ``vote_new`` first-wins-deduped votes."""
+    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    match = torch.maximum(st.match, torch.where(ack_touched, ack_max, 0))
+    next_ = torch.maximum(st.next, match + 1)
+    active = st.active | ack_touched
+    if track_contact:
+        contacted = ack_touched.any(1)
+        nonleader = (st.node_state != LEADER) & st.live
+        election_tick = torch.where(contacted & nonleader, 0, st.election_tick)
+    else:
+        election_tick = st.election_tick
+    last_index = torch.maximum(st.last_index, _self_column(match, st.self_slot))
+    if has_votes:
+        votes = torch.where(
+            (st.votes == VOTE_NONE) & (vote_new != VOTE_NONE), vote_new, st.votes
+        )
+    else:
+        votes = st.votes
+    return _finish_step(
+        st, match, next_, active, votes, election_tick, last_index, do_tick
+    )
+
+
+def _apply_recycle(st: QuorumState, row, term, start, last) -> QuorumState:
+    """Masked leader-recycle row reset (twin: ``remove_group`` +
+    ``add_group`` + ``set_leader`` for a same-geometry tenant).  Rows
+    outside [0, G) are padding and dropped.  The read, devsm and telem
+    resets of the reference belong to later slices (their planes stay at
+    reset values in the port)."""
+    g, p = st.match.shape
+    keep = (row >= 0) & (row < g)
+    rows = row[keep].long()
+    term, start, last = term[keep], start[keep], last[keep]
+    sel = st.self_slot[rows]
+    cols = torch.arange(p, dtype=I32, device=row.device)[None, :]
+    match_rows = torch.where(cols == sel[:, None], last[:, None], 0)
+    next_rows = (last[:, None] + 1).expand(match_rows.shape)
+
+    def put(t, value):
+        out = t.clone()
+        out[rows] = value
+        return out
+
+    return st._replace(
+        node_state=put(st.node_state, LEADER),
+        live=put(st.live, True),
+        term=put(st.term, term),
+        term_start=put(st.term_start, start),
+        last_index=put(st.last_index, last),
+        committed=put(st.committed, 0),
+        election_tick=put(st.election_tick, 0),
+        heartbeat_tick=put(st.heartbeat_tick, 0),
+        match=put(st.match, match_rows),
+        next=put(st.next, next_rows),
+        active=put(st.active, False),
+        votes=put(st.votes, VOTE_NONE),
+    )
+
+
+def _check_purge(has_churn, purge_reads, purge_kv, purge_telem):
+    for on, what in (
+        (purge_reads, "purge_reads: the read plane's recycle reset"),
+        (purge_kv, "purge_kv: the devsm plane's recycle reset"),
+        (purge_telem, "purge_telem: the telemetry plane's recycle reset"),
+    ):
+        if on and has_churn:
+            raise NotImplementedError(
+                f"{what} is ported in a later slice (ROADMAP.md queue A)"
+            )
+
+
+def quorum_multiround_impl(
+    st: QuorumState,
+    ack_max,      # (K,G,P) i32 — per-round ack maxima; -1 = untouched
+    vote_new,     # (K,G,P) i8, or a dummy when not has_votes
+    churn_row,    # (K,C) i32 — rows recycled at round start; G = pad
+    churn_term,   # (K,C) i32
+    churn_start,  # (K,C) i32 rel
+    churn_last,   # (K,C) i32 rel
+    tick_mask,    # (K,) bool — which rounds tick
+    read_stage_idx=None, read_stage_cnt=None, read_ack=None,
+    kv_ent_idx=None, kv_ent_key=None, kv_ent_val=None, kv_read_key=None,
+    do_tick: bool = False,
+    track_contact: bool = True,
+    has_votes: bool = False,
+    has_churn: bool = False,
+    has_reads: bool = False,
+    purge_reads: bool = False,
+    has_kv: bool = False,
+    purge_kv: bool = False,
+    has_hier: bool = False,
+    has_telem: bool = False,
+    purge_telem: bool = False,
+    telem_k: int = TELEM_TOPK,
+) -> StepOutputs:
+    """K engine rounds, including in-program churn: per round (1) that
+    round's row recycles, (2) the dense ingest of its ``-1``-sentinel ack
+    block and votes, (3) tally/commit, then the tick where ``tick_mask``
+    says so.  Flags OR over the rounds; the final watermark is the egress.
+
+    The ``purge_*`` flags reset planes of later slices on recycle; the
+    port defaults them to False (the reference defaults them to True, a
+    no-op on planes never used) and raises if one is set with churn."""
+    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    _check_purge(has_churn, purge_reads, purge_kv, purge_telem)
+    g = st.match.shape[0]
+    zeros = torch.zeros((g,), dtype=BOOL, device=st.match.device)
+    won = lost = elect = hb = demote = zeros
+    for r in range(ack_max.shape[0]):
+        if has_churn:
+            st = _apply_recycle(
+                st, churn_row[r], churn_term[r], churn_start[r], churn_last[r]
+            )
+        am = ack_max[r]
+        out = quorum_step_dense_impl(
+            st, am.clamp_min(0), am >= 0,
+            vote_new[r] if has_votes else None,
+            do_tick=False, track_contact=track_contact, has_votes=has_votes,
+        )
+        st = out.state
+        won, lost = won | out.won, lost | out.lost
+        if do_tick:
+            tm = tick_mask[r]
+            ticked, tflags = tick_step(st)
+            st = st._replace(
+                election_tick=torch.where(tm, ticked.election_tick, st.election_tick),
+                heartbeat_tick=torch.where(tm, ticked.heartbeat_tick, st.heartbeat_tick),
+                active=torch.where(tm, ticked.active, st.active),
+            )
+            elect = elect | (tflags.elect_due & tm)
+            hb = hb | (tflags.hb_due & tm)
+            demote = demote | (tflags.checkq_demote & tm)
+    return StepOutputs(st, st.committed, won, lost, TickFlags(elect, hb, demote))
+
+
+# ----------------------------------------------------------------------
+# entry points
+# ----------------------------------------------------------------------
+
+
+def _device_of(st: QuorumState, *tensors) -> torch.device:
+    """The one device of the state and the given tensors (None skipped)."""
+    dev = st.match.device
+    for t in tuple(st) + tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}: use one device")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _flag_buffer(g: int, device) -> torch.Tensor:
+    return torch.empty((5, g), dtype=BOOL, device=device)
+
+
+def _outputs(st: QuorumState, buf: torch.Tensor) -> StepOutputs:
+    return StepOutputs(
+        st, st.committed, buf[0], buf[1], TickFlags(buf[2], buf[3], buf[4])
+    )
+
+
+def flag_block(out: StepOutputs) -> torch.Tensor:
+    """The (5, G) bool tensor whose rows are an entry point's ``won``,
+    ``lost``, ``elect_due``, ``hb_due`` and ``checkq_demote``: the engine
+    copies the five to the host as one block."""
+    won = out.won
+    return won.new_empty((0,)).set_(
+        won.untyped_storage(), won.storage_offset(), (5, won.shape[0])
+    )
+
+
+def _write_back(st: QuorumState, out: StepOutputs) -> StepOutputs:
+    """Copy a plain version's result into the caller's state tensors (the
+    in-place contract of the entry points) and pack its flags."""
+    for old, new in zip(st, out.state):
+        if new is not old:
+            old.copy_(new)
+    buf = _flag_buffer(st.match.shape[0], st.match.device)
+    for i, f in enumerate((out.won, out.lost) + tuple(out.flags)):
+        buf[i].copy_(f)
+    return _outputs(st, buf)
+
+
+_PEER_FIELDS = ("match", "next", "voting", "active", "votes")
+_STATE_DTYPES = {
+    "node_state": I8, "votes": I8,
+    "electable": BOOL, "check_quorum_on": BOOL, "live": BOOL,
+    "voting": BOOL, "present": BOOL, "active": BOOL,
+}
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype) -> None:
+    if t is None:
+        raise ValueError(f"{name}: missing")
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(
+            f"{name}: {tuple(t.shape)} {t.dtype}, expected {tuple(shape)} {dtype}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _cstate(st: QuorumState) -> _build.CState:
+    g, p = st.match.shape
+    if not 1 <= p <= MAX_KERNEL_PEERS:
+        raise ValueError(f"peer width {p}: the CUDA kernels take 1..{MAX_KERNEL_PEERS}")
+    cs = _build.CState(G=g, P=p)
+    for name, _ in _build.CState._fields_[:-2]:
+        t = getattr(st, name)
+        shape = (g, p) if name in _PEER_FIELDS else (g,)
+        _check(t, name, shape, _STATE_DTYPES.get(name, I32))
+        setattr(cs, name, t.data_ptr())
+    return cs
+
+
+def _cflags(buf: torch.Tensor) -> _build.CFlags:
+    return _build.CFlags(*(buf[i].data_ptr() for i in range(5)))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _run(name: str, dev: torch.device, call) -> None:
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = call(lib, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {lib.qs_error_string(rc).decode()}"
+        )
+    _LAUNCHES[name] += 1
+
+
+def _bits(do_tick, track_contact, has_votes, has_churn=False) -> int:
+    return (
+        (_F_DO_TICK if do_tick else 0)
+        | (_F_TRACK_CONTACT if track_contact else 0)
+        | (_F_HAS_VOTES if has_votes else 0)
+        | (_F_HAS_CHURN if has_churn else 0)
+    )
+
+
+def quorum_step(
+    st: QuorumState,
+    ack_g, ack_p, ack_val, ack_valid,
+    vote_g, vote_p, vote_grant, vote_valid,
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_hier: bool = False,
+    has_telem: bool = False,
+    telem_k: int = TELEM_TOPK,
+    has_reads: bool = False,
+    has_kv: bool = False,
+) -> StepOutputs:
+    """ONE sparse round over K padded events, in place (K2 on CUDA:
+    ``csrc/quorum_step.cu``).  ``has_votes=False`` leaves the vote
+    arguments unread (they may be dummies)."""
+    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    votes_in = (vote_g, vote_p, vote_grant, vote_valid) if has_votes else ()
+    dev = _device_of(st, ack_g, ack_p, ack_val, ack_valid, *votes_in)
+    if dev.type == "cpu":
+        return _write_back(st, quorum_step_impl(
+            st, ack_g, ack_p, ack_val, ack_valid,
+            vote_g, vote_p, vote_grant, vote_valid,
+            do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+        ))
+    return _sparse_launch(
+        st, dev, (ack_g, ack_p, ack_val, ack_valid),
+        (vote_g, vote_p, vote_grant, vote_valid), do_tick, track_contact,
+        has_votes,
+    )
+
+
+def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes):
+    ack_g, ack_p, ack_val, ack_valid = acks
+    vote_g, vote_p, vote_grant, vote_valid = votes
+    cst = _cstate(st)
+    g = st.match.shape[0]
+    n_acks = ack_g.shape[0]
+    for t, name, dt in ((ack_g, "ack_g", I32), (ack_p, "ack_p", I32),
+                        (ack_val, "ack_val", I32), (ack_valid, "ack_valid", BOOL)):
+        _check(t, name, (n_acks,), dt)
+    n_votes = 0
+    if has_votes:
+        n_votes = vote_g.shape[0]
+        for t, name, dt in ((vote_g, "vote_g", I32), (vote_p, "vote_p", I32),
+                            (vote_grant, "vote_grant", I8),
+                            (vote_valid, "vote_valid", BOOL)):
+            _check(t, name, (n_votes,), dt)
+    else:
+        vote_g = vote_p = vote_grant = vote_valid = None
+    buf = _flag_buffer(g, dev)
+    cfl = _cflags(buf)
+    contacted = torch.empty((g,), dtype=BOOL, device=dev)
+    _run("quorum_step", dev, lambda lib, stream: lib.qs_sparse(
+        ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
+        _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
+        _ptr(vote_valid), n_votes, _ptr(contacted), ctypes.byref(cfl),
+        _bits(do_tick, track_contact, has_votes), stream,
+    ))
+    return _outputs(st, buf)
+
+
+def quorum_step_dense(
+    st: QuorumState,
+    ack_max, ack_touched, vote_new,
+    read_stage_idx=None, read_stage_cnt=None, read_ack=None,
+    kv_ent_idx=None, kv_ent_key=None, kv_ent_val=None, kv_read_key=None,
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_reads: bool = False,
+    has_kv: bool = False,
+    has_hier: bool = False,
+    has_telem: bool = False,
+    telem_k: int = TELEM_TOPK,
+) -> StepOutputs:
+    """ONE dense round, in place (K1 on CUDA: ``csrc/quorum_step_dense.cu``).
+    ``has_votes=False`` leaves ``vote_new`` unread."""
+    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    dev = _device_of(st, ack_max, ack_touched, vote_new if has_votes else None)
+    if dev.type == "cpu":
+        return _write_back(st, quorum_step_dense_impl(
+            st, ack_max, ack_touched, vote_new,
+            do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+        ))
+    return _dense_launch(
+        st, dev, ack_max, ack_touched, vote_new, do_tick, track_contact,
+        has_votes,
+    )
+
+
+def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
+                  track_contact, has_votes):
+    cst = _cstate(st)
+    g, p = st.match.shape
+    _check(ack_max, "ack_max", (g, p), I32)
+    _check(ack_touched, "ack_touched", (g, p), BOOL)
+    if has_votes:
+        _check(vote_new, "vote_new", (g, p), I8)
+    else:
+        vote_new = None
+    buf = _flag_buffer(g, dev)
+    cfl = _cflags(buf)
+    _run("quorum_step_dense", dev, lambda lib, stream: lib.qs_dense(
+        ctypes.byref(cst), _ptr(ack_max), _ptr(ack_touched), _ptr(vote_new),
+        ctypes.byref(cfl), _bits(do_tick, track_contact, has_votes), stream,
+    ))
+    return _outputs(st, buf)
+
+
+def quorum_multiround(
+    st: QuorumState,
+    ack_max, vote_new, churn_row, churn_term, churn_start, churn_last,
+    tick_mask,
+    read_stage_idx=None, read_stage_cnt=None, read_ack=None,
+    kv_ent_idx=None, kv_ent_key=None, kv_ent_val=None, kv_read_key=None,
+    do_tick: bool = False,
+    track_contact: bool = True,
+    has_votes: bool = False,
+    has_churn: bool = False,
+    has_reads: bool = False,
+    purge_reads: bool = False,
+    has_kv: bool = False,
+    purge_kv: bool = False,
+    has_hier: bool = False,
+    has_telem: bool = False,
+    purge_telem: bool = False,
+    telem_k: int = TELEM_TOPK,
+) -> StepOutputs:
+    """K rounds with in-program churn in ONE launch, in place (K3 on CUDA:
+    ``csrc/quorum_multiround.cu``).  Arguments of disabled features
+    (votes without ``has_votes``, churn records without ``has_churn``,
+    ``tick_mask`` without ``do_tick``) are unread."""
+    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    _check_purge(has_churn, purge_reads, purge_kv, purge_telem)
+    churn_in = (churn_row, churn_term, churn_start, churn_last) if has_churn else ()
+    dev = _device_of(
+        st, ack_max, vote_new if has_votes else None, *churn_in,
+        tick_mask if do_tick else None,
+    )
+    if dev.type == "cpu":
+        return _write_back(st, quorum_multiround_impl(
+            st, ack_max, vote_new, churn_row, churn_term, churn_start,
+            churn_last, tick_mask, do_tick=do_tick,
+            track_contact=track_contact, has_votes=has_votes,
+            has_churn=has_churn,
+        ))
+    return _multiround_launch(
+        st, dev, ack_max, vote_new,
+        (churn_row, churn_term, churn_start, churn_last), tick_mask,
+        do_tick, track_contact, has_votes, has_churn,
+    )
+
+
+def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
+                       track_contact, has_votes, has_churn):
+    churn_row, churn_term, churn_start, churn_last = churn
+    cst = _cstate(st)
+    g, p = st.match.shape
+    k = ack_max.shape[0]
+    _check(ack_max, "ack_max", (k, g, p), I32)
+    if has_votes:
+        _check(vote_new, "vote_new", (k, g, p), I8)
+    else:
+        vote_new = None
+    n_records = 0
+    churn_map = None
+    if has_churn:
+        n_records = churn_row.shape[1]
+        for t, name in ((churn_row, "churn_row"), (churn_term, "churn_term"),
+                        (churn_start, "churn_start"), (churn_last, "churn_last")):
+            _check(t, name, (k, n_records), I32)
+        churn_map = torch.empty((k, g), dtype=I32, device=dev)
+    else:
+        churn_row = churn_term = churn_start = churn_last = None
+    if do_tick:
+        _check(tick_mask, "tick_mask", (k,), BOOL)
+    else:
+        tick_mask = None
+    buf = _flag_buffer(g, dev)
+    cfl = _cflags(buf)
+    _run("quorum_multiround", dev, lambda lib, stream: lib.qs_multiround(
+        ctypes.byref(cst), _ptr(ack_max), _ptr(vote_new), _ptr(churn_row),
+        _ptr(churn_term), _ptr(churn_start), _ptr(churn_last), n_records,
+        _ptr(tick_mask), k, _ptr(churn_map), ctypes.byref(cfl),
+        _bits(do_tick, track_contact, has_votes, has_churn), stream,
+    ))
+    return _outputs(st, buf)

@@ -1,0 +1,211 @@
+"""The arithmetic of the CUDA sources, run on the CPU against the plain
+versions.
+
+``csrc/quorum.cuh`` compiles as host C++ when ``QS_EMULATE`` is defined:
+every launch becomes a loop over blocks and threads.  The test builds the
+three sources that way with the host C++ compiler, binds the library with
+the same ctypes declarations the CUDA build uses, and drives it through
+the port's own launch functions on CPU tensors, so the struct layouts,
+pointer passing, flag bits and template dispatch are exercised along with
+the row functions.  The CUDA build itself is held against the plain
+versions on the card by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from dragonboat_tpu_torch.ops import _build
+from dragonboat_tpu_torch.ops import kernels as tk
+from dragonboat_tpu_torch.ops import state as ts
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+WIDTHS = [1, 2, 3, 4, 5, 6, 7, 8, 12, 32]
+G = 64
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the emulated kernels")
+    out = tmp_path_factory.mktemp("qs_emulate")
+    objs, procs = [], []
+    for src in _build.SOURCES:
+        obj = str(out / src.replace(".cu", ".o"))
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [cxx, "-std=c++17", "-O0", "-DQS_EMULATE", "-fPIC", "-w",
+             "-x", "c++", "-c", os.path.join(_build.SRC_DIR, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    for proc in procs:
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, log
+    lib = str(out / "libqs_emulate.so")
+    subprocess.run([cxx, "-shared", "-o", lib, *objs], check=True, timeout=120)
+    return _build.bind(lib)
+
+
+@pytest.fixture
+def launch(emulated, monkeypatch):
+    def run(name, dev, call):
+        rc = call(emulated, None)
+        assert rc == 0
+        tk._LAUNCHES[name] += 1
+    monkeypatch.setattr(tk, "_run", run)
+    tk.reset_launch_counts()
+
+
+def _fields(seed, g, p):
+    rng = np.random.default_rng(seed)
+    f = ts.state_to_numpy(ts.make_state(g, p, device="cpu"))
+    f["node_state"][:] = rng.choice([0, 1, 2, 2, 2, 3, 4], g)
+    f["live"][:] = rng.random(g) < 0.9
+    f["term"][:] = rng.integers(0, 6, g)
+    f["voting"][:] = rng.random((g, p)) < 0.8
+    f["quorum"][:] = f["voting"].sum(1) // 2 + 1
+    f["self_slot"][:] = rng.integers(0, p + 1, g)  # p: out of range
+    f["match"][:] = rng.integers(0, 20, (g, p))
+    f["next"][:] = f["match"] + rng.integers(1, 4, (g, p))
+    f["last_index"][:] = rng.integers(0, 22, g)
+    f["committed"][:] = rng.integers(0, 12, g)
+    f["term_start"][:] = rng.integers(0, 14, g)
+    f["election_tick"][:] = rng.integers(0, 12, g)
+    f["heartbeat_tick"][:] = rng.integers(0, 3, g)
+    f["rand_timeout"][:] = rng.integers(4, 14, g)
+    f["election_timeout"][:] = rng.integers(3, 10, g)
+    f["heartbeat_timeout"][:] = rng.integers(1, 3, g)
+    f["electable"][:] = rng.random(g) < 0.8
+    f["check_quorum_on"][:] = rng.random(g) < 0.5
+    f["active"][:] = rng.random((g, p)) < 0.4
+    f["votes"][:] = rng.choice([-1, -1, 0, 1], (g, p))
+    return f
+
+
+def _state(f):
+    return ts.state_from_numpy(f, device="cpu")
+
+
+def _assert_same(kout, pout, tag):
+    for name in ts.FIELDS:
+        a, b = getattr(kout.state, name), getattr(pout.state, name)
+        assert torch.equal(a, b), (tag, name)
+    for name in ("committed", "won", "lost"):
+        assert torch.equal(getattr(kout, name), getattr(pout, name)), (tag, name)
+    for name, a, b in zip(tk.TickFlags._fields, kout.flags, pout.flags):
+        assert torch.equal(a, b), (tag, name)
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_dense_kernel_matches_plain(launch, p):
+    for i, (tick, track, votes) in enumerate(itertools.product([False, True], repeat=3)):
+        seed = 100 * p + i
+        f = _fields(seed, G, p)
+        rng = np.random.default_rng(seed)
+        touched = torch.from_numpy(rng.random((G, p)) < 0.35)
+        ack = torch.from_numpy(rng.integers(0, 25, (G, p)).astype(np.int32))
+        ack = torch.where(touched, ack, 0)
+        vote_new = torch.from_numpy(rng.choice([-1, -1, 0, 1], (G, p)).astype(np.int8))
+        kout = tk._dense_launch(_state(f), CPU, ack, touched, vote_new, tick, track, votes)
+        pout = tk.quorum_step_dense_impl(
+            _state(f), ack, touched, vote_new, do_tick=tick,
+            track_contact=track, has_votes=votes,
+        )
+        _assert_same(kout, pout, (p, tick, track, votes))
+    assert tk.launch_counts()["quorum_step_dense"] == 8
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_sparse_kernel_matches_plain(launch, p):
+    for i, (tick, track, votes) in enumerate(itertools.product([False, True], repeat=3)):
+        seed = 200 * p + i
+        f = _fields(seed, G, p)
+        rng = np.random.default_rng(seed)
+        cap = 160
+        ag = rng.integers(0, G + 2, cap).astype(np.int32)  # some rows out of range
+        ap = rng.integers(0, p + 1, cap).astype(np.int32)  # some slots out of range
+        av = rng.integers(0, 25, cap).astype(np.int32)
+        valid = rng.random(cap) < 0.9
+        cells = rng.choice(G * p, size=min(64, G * p), replace=False)
+        vg = (cells // p).astype(np.int32)
+        vp = (cells % p).astype(np.int32)
+        vv = rng.integers(0, 2, cells.size).astype(np.int8)
+        vvalid = rng.random(cells.size) < 0.8
+        acks = tuple(torch.from_numpy(a) for a in (ag, ap, av, valid))
+        vts = tuple(torch.from_numpy(a) for a in (vg, vp, vv, vvalid))
+        kout = tk._sparse_launch(_state(f), CPU, acks, vts, tick, track, votes)
+        pout = tk.quorum_step_impl(
+            _state(f), *acks, *vts, do_tick=tick, track_contact=track,
+            has_votes=votes,
+        )
+        _assert_same(kout, pout, (p, tick, track, votes))
+    assert tk.launch_counts()["quorum_step"] == 8
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_multiround_kernel_matches_plain(launch, p):
+    k, c = 4, 12
+    for i, (tick, track, votes, churn) in enumerate(
+        itertools.product([False, True], repeat=4)
+    ):
+        seed = 300 * p + i
+        f = _fields(seed, G, p)
+        rng = np.random.default_rng(seed)
+        ack = np.where(rng.random((k, G, p)) < 0.35,
+                       rng.integers(0, 25, (k, G, p)), -1).astype(np.int32)
+        vote_new = rng.choice([-1, -1, 0, 1], (k, G, p)).astype(np.int8)
+        rows = np.full((k, c), G, np.int32)
+        for r in range(k):
+            n = rng.integers(0, c + 1)
+            rows[r, :n] = rng.choice(G, size=n, replace=False)
+        start = rng.integers(0, 5, (k, c)).astype(np.int32)
+        churn_t = tuple(torch.from_numpy(a) for a in (
+            rows, rng.integers(1, 9, (k, c)).astype(np.int32), start,
+            (start + rng.integers(0, 5, (k, c))).astype(np.int32),
+        ))
+        tick_mask = torch.from_numpy(rng.random(k) < 0.6)
+        ack_t, vote_t = torch.from_numpy(ack), torch.from_numpy(vote_new)
+        kout = tk._multiround_launch(
+            _state(f), CPU, ack_t, vote_t, churn_t, tick_mask, tick, track,
+            votes, churn,
+        )
+        pout = tk.quorum_multiround_impl(
+            _state(f), ack_t, vote_t, *churn_t, tick_mask, do_tick=tick,
+            track_contact=track, has_votes=votes, has_churn=churn,
+        )
+        _assert_same(kout, pout, (p, tick, track, votes, churn))
+    assert tk.launch_counts()["quorum_multiround"] == 16
+
+
+def test_kernel_build_needs_nvcc_and_never_falls_back(monkeypatch, tmp_path):
+    """Without nvcc the build raises; nothing substitutes the plain path."""
+    if _build.loaded():
+        pytest.skip("the kernel library is already loaded in this process")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library()
+    assert not _build.loaded()
+
+
+def test_source_hash_keys_the_library_on_every_source(monkeypatch, tmp_path):
+    for name in _build.SOURCES + _build.HEADERS:
+        shutil.copy(os.path.join(_build.SRC_DIR, name), tmp_path / name)
+    monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
+    base = _build.source_hash()
+    for name in _build.SOURCES + _build.HEADERS:
+        with open(tmp_path / name, "a") as f:
+            f.write("\n// edited\n")
+        edited = _build.source_hash()
+        assert edited != base, name
+        base = edited
