@@ -22,11 +22,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 The launch counters are zeroed just before phase 3 and read just after
 phase 4: every kernel must have launched in that run.  JSON lines report
 what was measured; the line before the last is the card's name and power
-limit, the last line the result.  ``--phases`` runs a subset.
+limit, the last line the result.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -154,38 +153,54 @@ def multiround_inputs(seed, k, g, p, c):
 
 
 # ----------------------------------------------------------------------
-# bytes each kernel must move (each input read once, each output written once)
+# bytes each kernel must move: each input read once, each output written
+# once.  The state is updated in place, so its output is the cells that
+# this run's data changes, counted against the plain version's result.
 # ----------------------------------------------------------------------
 
 
-def state_bytes(g, p, do_tick, track, votes_written):
-    """Reads and writes of the quorum state by one step over g rows."""
-    read = 22 + 11 * p  # node_state live committed last_index term_start quorum self_slot; match next voting active votes
-    write = 9 * p + 8 + 5  # match next active; committed last_index; flags
-    if track or do_tick:
+def state_read_bytes(g, p, flags):
+    """The state fields one step reads, once per row: node_state live
+    committed last_index term_start quorum self_slot; match next voting
+    active votes; the election clock where contact or ticks use it; the
+    other clocks, timeouts and switches where it ticks."""
+    read = 22 + 11 * p
+    if flags["track_contact"] or flags["do_tick"]:
         read += 4
-        write += 4  # election_tick
-    if do_tick:
-        read += 18  # heartbeat_tick, three timeouts, electable, check_quorum_on
-        write += 4  # heartbeat_tick
-    if votes_written:
-        write += p
-    return g * (read + write)
+    if flags["do_tick"]:
+        read += 18
+    return g * read
 
 
-def kernel_bytes(name, g, p, flags, n_acks=0, n_votes=0, k=1, churn_rows=0, n_records=0):
-    do_tick, track, votes = flags["do_tick"], flags["track_contact"], flags["has_votes"]
+def state_written_bytes(before, after):
+    """The bytes of the state cells that differ between ``before`` and
+    ``after`` (two QuorumStates on the card)."""
+    return sum(int((a != b).sum()) * a.element_size()
+               for a, b in zip(before, after))
+
+
+def input_bytes(name, inputs, flags):
+    """The step's inputs (numpy arrays) that its flags make it read."""
     if name == "quorum_step_dense":
-        return state_bytes(g, p, do_tick, track, votes) + g * p * (5 + (1 if votes else 0))
+        ack_max, touched, vote_new = inputs[0]
+        return ack_max.nbytes + touched.nbytes + (vote_new.nbytes if flags["has_votes"] else 0)
     if name == "quorum_step":
-        return (state_bytes(g, p, do_tick, track, votes)
-                + 13 * n_acks + (10 * n_votes if votes else 0))
-    churn = flags["has_churn"]
-    total = state_bytes(g, p, do_tick, track, votes or churn)
-    total += 4 * k * g * p + (k * g * p if votes else 0) + (k if do_tick else 0)
-    if churn:
-        total += 16 * k * n_records + 10 * churn_rows  # records; node_state live term term_start
-    return total
+        acks, votes = inputs
+        return sum(a.nbytes for a in acks) + (
+            sum(a.nbytes for a in votes) if flags["has_votes"] else 0)
+    (ack, votes), (*churn, tick_mask) = inputs
+    return (ack.nbytes + (votes.nbytes if flags["has_votes"] else 0)
+            + (tick_mask.nbytes if flags["do_tick"] else 0)
+            + (sum(a.nbytes for a in churn) if flags["has_churn"] else 0))
+
+
+def kernel_bytes(name, inputs, flags, before, after):
+    """Bytes one launch must move on this run's data: the state it reads,
+    its inputs, the state cells it changes and its five (G,) flag
+    outputs."""
+    g, p = before.match.shape
+    return (state_read_bytes(g, p, flags) + input_bytes(name, inputs, flags)
+            + state_written_bytes(before, after) + 5 * g)
 
 
 def kernel_ops(g, p, k=1):
@@ -206,15 +221,18 @@ def bound_ms(nbytes, ops):
 # ----------------------------------------------------------------------
 
 
-def device_ms(torch, fn, iters=30, warmup=3):
-    """Median device time of ``fn``'s launches: a sleep kernel keeps the
-    stream busy while the host enqueues start event, launch and end event,
-    so the events bracket device work only."""
+def device_ms(torch, fn, reset, iters=30, warmup=3):
+    """Median device time of ``fn``'s launches, each on the inputs that
+    ``reset`` restores ahead of it (outside the timed span): a sleep kernel
+    keeps the stream busy while the host enqueues start event, launch and
+    end event, so the events bracket device work only."""
     for _ in range(warmup):
+        reset()
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
+        reset()
         if hasattr(torch.cuda, "_sleep"):
             torch.cuda._sleep(2_000_000)
         s = torch.cuda.Event(enable_timing=True)
@@ -247,13 +265,20 @@ def wall_ms(torch, fn, iters=20, warmup=2):
 
 
 def _equal_outputs(torch, ts, tk, kout, pout, tag):
-    for name in ts.FIELDS:
-        a, b = getattr(kout.state, name), getattr(pout.state, name)
-        check(torch.equal(a, b), f"{tag}: state field {name} differs")
-    for name in ("committed", "won", "lost"):
-        check(torch.equal(getattr(kout, name), getattr(pout, name)), f"{tag}: {name} differs")
-    for name, a, b in zip(tk.TickFlags._fields, kout.flags, pout.flags):
+    """Checks that every state field and output of the kernel equals the
+    plain version's; returns the largest absolute difference seen."""
+    pairs = [(f"state field {name}", getattr(kout.state, name), getattr(pout.state, name))
+             for name in ts.FIELDS]
+    pairs += [(name, getattr(kout, name), getattr(pout, name))
+              for name in ("committed", "won", "lost")]
+    pairs += list(zip(tk.TickFlags._fields, kout.flags, pout.flags))
+    err = 0
+    for name, a, b in pairs:
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name} shape or dtype differs")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
         check(torch.equal(a, b), f"{tag}: {name} differs")
+    return err
 
 
 def _run_pair(torch, ts, tk, name, fields, inputs, flags, dev):
@@ -313,13 +338,15 @@ MAIN_VARIANT = {
 def phase_kernels(torch, ts, tk, dev):
     g, p = 100_000, 5
     compared = 0
+    max_err = dict.fromkeys(TPU_KERNELS, 0)
     for name in TPU_KERNELS:
         for i, flags in enumerate(_flag_grid(name)):
             seed = 10_000 + 100 * list(TPU_KERNELS).index(name) + i
             fields = random_fields(ts, seed, g, p)
             kout, pout = _run_pair(torch, ts, tk, name, fields,
                                    _inputs(name, seed, g, p), flags, dev)
-            _equal_outputs(torch, ts, tk, kout, pout, f"{name} {flags}")
+            max_err[name] = max(max_err[name], _equal_outputs(
+                torch, ts, tk, kout, pout, f"{name} {flags}"))
             compared += 1
     for width in (1, 2, 3, 4, 6, 7, 8, 12):
         for name in TPU_KERNELS:
@@ -334,9 +361,10 @@ def phase_kernels(torch, ts, tk, dev):
                     torch, ts, tk, name, fields,
                     _inputs(name, seed, 4096, width, k=4, c=64, cap=1024),
                     flags, dev)
-                _equal_outputs(torch, ts, tk, kout, pout, f"{name} P={width} {flags}")
+                max_err[name] = max(max_err[name], _equal_outputs(
+                    torch, ts, tk, kout, pout, f"{name} P={width} {flags}"))
                 compared += 1
-    emit({"phase": "kernels_vs_plain", "compared": compared, "max_abs_err": 0})
+    emit({"phase": "kernels_vs_plain", "compared": compared, "max_abs_err": max_err})
 
     timings = {}
     for name, flags in MAIN_VARIANT.items():
@@ -346,32 +374,38 @@ def phase_kernels(torch, ts, tk, dev):
         T = [tuple(torch.from_numpy(np.array(a)).to(dev) for a in grp) for grp in inputs]
         st_k = ts.state_from_numpy(fields, dev)
         st_p = ts.state_from_numpy(fields, dev)
-        if name == "quorum_step_dense":
-            kern = lambda: tk.quorum_step_dense(st_k, *T[0], **flags)  # noqa: E731
-            plain = lambda: tk.quorum_step_dense_impl(st_p, *T[0], **flags)  # noqa: E731
-            nbytes = kernel_bytes(name, g, p, flags)
-            ops = kernel_ops(g, p)
-        elif name == "quorum_step":
-            kern = lambda: tk.quorum_step(st_k, *T[0], *T[1], **flags)  # noqa: E731
-            plain = lambda: tk.quorum_step_impl(st_p, *T[0], *T[1], **flags)  # noqa: E731
-            nbytes = kernel_bytes(name, g, p, flags, n_acks=int(inputs[0][3].sum()))
-            ops = kernel_ops(g, p)
-        else:
-            kern = lambda: tk.quorum_multiround(st_k, *T[0], *T[1], **flags)  # noqa: E731
-            plain = lambda: tk.quorum_multiround_impl(st_p, *T[0], *T[1], **flags)  # noqa: E731
-            churn_row = inputs[1][0]
-            rows = int(((churn_row >= 0) & (churn_row < g)).sum())
-            nbytes = kernel_bytes(name, g, p, flags, k=8, churn_rows=rows,
-                                  n_records=churn_row.shape[1])
-            ops = kernel_ops(g, p, k=8)
+        entry, plain_fn = {
+            "quorum_step_dense": (tk.quorum_step_dense, tk.quorum_step_dense_impl),
+            "quorum_step": (tk.quorum_step, tk.quorum_step_impl),
+            "quorum_multiround": (tk.quorum_multiround, tk.quorum_multiround_impl),
+        }[name]
+        args = [t for grp in T for t in grp]
+        kern = lambda: entry(st_k, *args, **flags)  # noqa: E731
+        plain = lambda: plain_fn(st_p, *args, **flags)  # noqa: E731
+        saved = [t.clone() for t in st_k]
+
+        def reset():
+            for t, s in zip(st_k, saved):
+                t.copy_(s)
+
+        pout = plain()  # functional: st_p stays the input state
+        nbytes = kernel_bytes(name, inputs, flags, st_p, pout.state)
+        ops = kernel_ops(g, p, k=8 if name == "quorum_multiround" else 1)
         b_ms, b_by = bound_ms(nbytes, ops)
+        ms = device_ms(torch, kern, reset)
+        reset()
+        max_err[name] = max(max_err[name], _equal_outputs(
+            torch, ts, tk, kern(), pout, f"{name} timed {flags}"))
+        compared += 1
         timings[name] = {
-            "ms": device_ms(torch, kern),
+            "ms": ms,
             "plain_ms": wall_ms(torch, plain, iters=10),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "bytes_state_written": state_written_bytes(st_p, pout.state),
             "shape": {"G": g, "P": p, **({"K": 8, "C": 2048} if name == "quorum_multiround"
                                          else {"events": 4096} if name == "quorum_step" else {})},
             "flags": flags,
+            "max_abs_err": max_err[name],
         }
         emit({"phase": "kernel_time", "name": name, **timings[name]})
     return timings
@@ -659,13 +693,7 @@ def phase_ops(torch, engine_mod, dev):
 # ----------------------------------------------------------------------
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,rung5,ops",
-                    help="comma-separated subset of build,kernels,rung5,ops")
-    args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -693,29 +721,21 @@ def main(argv=None) -> int:
               "compiled": info.get("compiled"),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "spill" in ln and not ln.strip().startswith("0 bytes")][:6]})
-        timings = {}
-        if "kernels" in phases:
-            timings = phase_kernels(torch, ts, tk, dev)
+        timings = phase_kernels(torch, ts, tk, dev)
         tk.reset_launch_counts()  # the main path's run starts here
-        rung5 = (phase_rung5(torch, engine_mod, tk, dev)
-                 if "rung5" in phases else None)
-        if "ops" in phases:
-            phase_ops(torch, engine_mod, dev)
+        phase_rung5(torch, engine_mod, tk, dev)
+        phase_ops(torch, engine_mod, dev)
         launches = tk.launch_counts()
         emit({"phase": "launches", **launches})
-        if "rung5" in phases and "ops" in phases:
-            for name, n in launches.items():
-                check(n > 0, f"{name} never launched on the main path")
-        kernels = []
-        for name, (src, replaces) in TPU_KERNELS.items():
-            t = timings.get(name, {})
-            kernels.append({
-                "name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": 0,
-                "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
-                "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-                "library_ms": None,
-            })
+        for name, n in launches.items():
+            check(n > 0, f"{name} never launched on the main path")
+        kernels = [{
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": timings[name]["max_abs_err"],
+            "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"],
+            "bound_ms": timings[name]["bound_ms"], "bound_by": timings[name]["bound_by"],
+            "library_ms": None,
+        } for name, (src, replaces) in TPU_KERNELS.items()]
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,23 +10,29 @@
 // per group row and holds the row's P peer columns in registers (P is a
 // template parameter for 1 <= P <= 8; P == 0 is the generic form for
 // 8 < P <= QS_MAX_GENERIC_P, whose columns live in local memory).  A
-// launch reads each state field of the row once and writes each changed
-// field once; the K-round kernel keeps the row in registers across all K
-// rounds.
+// launch reads each state field of the row once and writes back, whole,
+// each field it may change (store_row); the K-round kernel keeps the row
+// in registers across all K rounds.
 //
 // Bound on the H100.  The work is a handful of integer compares per byte,
 // so the kernels are bound by memory traffic (3.35 TB/s), not by
 // operations.  Per row at P peer slots the dense step with ticks reads 14
 // group scalars (44 B), 5 per-peer columns (11 B per slot) and its ack
-// inputs (5 B per slot), and writes 3 per-peer columns back (9 B per
-// slot), four scalars (16 B) and five flag bytes: 190 B per row at P = 5,
-// so 19.0 MB and 5.7 us at 100,000 groups.  The K-round kernel adds 4 B per slot per
-// round of ack input (160 B per row at K = 8, P = 5) and reads the state
-// once for the whole block.
+// inputs (5 B per slot): 124 B per row at P = 5.  What it must write
+// depends on the data: five flag bytes per row and the state cells that
+// change, which chip_smoke.py counts against the plain version's result
+// (kernel_bytes).  The K-round kernel adds 4 B per slot per round of ack
+// input (160 B per row at K = 8, P = 5) and reads the state once for the
+// whole block.  store_row writes whole rows, more than the cells that
+// change: that is one reason a launch takes longer than its bound.
 //
 // The same source compiles as host C++ with QS_EMULATE defined: launches
 // then run as loops over blocks and threads, which lets the arithmetic be
-// exercised without a GPU.  The CUDA build never defines it.
+// exercised without a GPU.  It runs the threads one after another, so it
+// checks the arithmetic and the binding but none of the concurrency of
+// the card (the event launch's atomicMax races): chip_smoke.py, which
+// holds the CUDA build against the plain versions on the card, is the
+// authority on the kernels.  The CUDA build never defines it.
 #pragma once
 
 #include <stddef.h>

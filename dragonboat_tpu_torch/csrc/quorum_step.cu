@@ -5,8 +5,10 @@
 // the scatter-max of the acks with atomicMax on int32 match and plain
 // byte stores of ``true`` into active and the (G,) contacted scratch
 // (idempotent, so no atomics are needed); the row launch is K1's tail.
-// Bound: the row pass reads and writes the state as K1 does (see
-// quorum.cuh); the events add 17 B each for acks and 10 B for votes.
+// Bound: the row pass reads the state as K1 does (see quorum.cuh); the
+// events add 13 B each for acks and 10 B for votes; the writes are the
+// flags and the cells the events change (match, active, votes) and those
+// the tail changes (next, committed, last_index, the clocks).
 #include "quorum.cuh"
 
 extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,

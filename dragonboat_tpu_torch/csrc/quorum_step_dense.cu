@@ -3,8 +3,9 @@
 // Replaces dragonboat_tpu/ops/kernels.py quorum_step_dense_impl (:686)
 // with its tail _finish_step (:619) and tick_step (:472).  Bound and
 // design: see quorum.cuh — one thread per group row, the row in
-// registers, one read and one write of each state field it changes
-// (189 B per row at P = 5 with ticks on and votes off).
+// registers, one read of each state field it uses (124 B per row with
+// its inputs at P = 5, ticks on and votes off) and one write of each
+// field it may change.
 #include "quorum.cuh"
 
 extern "C" int qs_dense(const qs::State* s, const int32_t* ack_max,
