@@ -8,21 +8,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. build the CUDA kernels from ``dragonboat_tpu_torch/csrc/`` (nvcc);
 2. hold every kernel against its plain PyTorch version on the card, with
-   zero tolerance (integer and boolean work), at 100,000 groups x 5 peer
-   slots over the main path's flag combinations and at 4,096 groups for
-   every peer width in {1..8, 12}; time each kernel and its plain version;
+   zero tolerance (integer and boolean work): the three step kernels at
+   100,000 groups x 5 peer slots over the main path's flag combinations,
+   with and without the hier commit rule (and the telemetry fold after
+   them), and at 4,096 groups for every peer width in {1..8, 12}; the
+   telemetry fold at 100,000 x 5 over its occupancy switches and top-K
+   widths {1, 8, 16}, with injected ties, and at 5 groups; time each
+   kernel and its plain version;
 3. the rung-5 drive: 100,000 groups x 5 slots, K = 8 rounds per dispatch,
    2,048 rows recycled in the program every round, pipelined; every row's
    commit watermark must equal the numpy expectation;
 4. an op script at 65,536 groups x 5 slots with device ticks (elections,
    votes, wins, partial acks, a rebase, row reuse) through the sparse step,
    the dense step and the fused K-round path, each on the card and on the
-   CPU's plain path, equal after every step.
+   CPU's plain path, equal after every step;
+5. rung 5 with the hier commit rule on every row (near slots {0,1,2},
+   sub-quorum 2) and the telemetry fold on: every watermark against a
+   numpy expectation of max(classic, near), every fold against a numpy
+   fold, the last against one of the final state; then plain rung 5
+   once more, so that the hier drive's host figures stand between two
+   plain ones;
+6. the op script of phase 4 again with the hier rule on a third of the
+   rows and the fold on, the card's telemetry snapshot equal to the CPU's
+   after every step.
 
-The launch counters are zeroed just before phase 3 and read just after
-phase 4: every kernel must have launched in that run.  JSON lines report
-what was measured; the line before the last is the card's name and power
-limit, the last line the result.
+Each of phases 3 to 6 drives a main path: the launch counters are zeroed
+just before it and read just after, and every kernel that path runs must
+have launched.  JSON lines report what was measured; the line before the
+last is the card's name and power limit, the last line the result.
 """
 from __future__ import annotations
 
@@ -49,7 +62,14 @@ TPU_KERNELS = {  # the JAX function each CUDA kernel replaces
                     "dragonboat_tpu/ops/kernels.py:520"),
     "quorum_multiround": ("dragonboat_tpu_torch/csrc/quorum_multiround.cu",
                           "dragonboat_tpu/ops/kernels.py:1021"),
+    # the HIER instances of the three step kernels (launch counter
+    # "finish_hier"); timed as K3's, the hier main path's kernel
+    "finish_hier": ("dragonboat_tpu_torch/csrc/quorum.cuh",
+                    "dragonboat_tpu/ops/kernels.py:640"),
+    "telem_fold": ("dragonboat_tpu_torch/csrc/telem_fold.cu",
+                   "dragonboat_tpu/ops/kernels.py:213"),
 }
+STEP_KERNELS = ("quorum_step_dense", "quorum_step", "quorum_multiround")
 
 
 class PhaseError(Exception):
@@ -107,6 +127,26 @@ def random_fields(ts, seed, g, p):
     f["check_quorum_on"][:] = rng.random(g) < 0.5
     f["active"][:] = rng.random((g, p)) < 0.4
     f["votes"][:] = rng.choice([-1, -1, 0, 1], (g, p))
+    # the hier geometry (some sub-quorums above the near count, a third
+    # off) and the fold's watermark, from their own stream
+    rng2 = np.random.default_rng(seed + 7)
+    f["near"][:] = rng2.random((g, p)) < 0.5
+    f["sub_quorum"][:] = rng2.integers(0, p + 2, g)
+    f["sub_quorum"][::3] = 0
+    f["telem_prev_committed"][:] = np.where(rng2.random(g) < 0.5, f["committed"], 0)
+    return f
+
+
+def telem_fields(ts, seed, g, p):
+    """A state for the fold: lags drawn from a few values (many ties),
+    some at 2^i - 1, 2^i and 2^25 - 1, dead rows, occupied read and kv
+    slots, and watermarks half equal to committed."""
+    f = random_fields(ts, seed, g, p)
+    rng = np.random.default_rng(seed + 11)
+    lags = [0, 0, 1, 2, 3, 5, 8, 2**14 - 1, 2**14, 2**25 - 1]
+    f["last_index"][:] = f["committed"] + rng.choice(lags, g)
+    f["read_count"][:] = rng.integers(0, 3, f["read_count"].shape)
+    f["kv_ent_index"][:] = rng.integers(-1, 3, f["kv_ent_index"].shape)
     return f
 
 
@@ -169,6 +209,8 @@ def state_read_bytes(g, p, flags):
         read += 4
     if flags["do_tick"]:
         read += 18
+    if flags.get("has_hier"):  # near and sub_quorum
+        read += p + 4
     return g * read
 
 
@@ -201,6 +243,21 @@ def kernel_bytes(name, inputs, flags, before, after):
     g, p = before.match.shape
     return (state_read_bytes(g, p, flags) + input_bytes(name, inputs, flags)
             + state_written_bytes(before, after) + 5 * g)
+
+
+def telem_bytes(st_before, st_after, k, count_reads, count_kv):
+    """Bytes the fold must move: live, node_state, last_index, committed
+    and telem_prev_committed of every row (14 B), the occupancy arrays
+    it is asked to sweep, the watermark cells it changes and its output
+    block."""
+    g = st_before.match.shape[0]
+    n = 14 * g + 4 * (24 + 2 * min(k, g))
+    if count_reads:
+        n += st_before.read_count.numel() * 4
+    if count_kv:
+        n += st_before.kv_ent_index.numel() * 4
+    changed = st_before.telem_prev_committed != st_after.telem_prev_committed
+    return n + int(changed.sum()) * 4
 
 
 def kernel_ops(g, p, k=1):
@@ -266,12 +323,17 @@ def wall_ms(torch, fn, iters=20, warmup=2):
 
 def _equal_outputs(torch, ts, tk, kout, pout, tag):
     """Checks that every state field and output of the kernel equals the
-    plain version's; returns the largest absolute difference seen."""
+    plain version's (the telemetry aggregate too, where the step folded);
+    returns the largest absolute difference seen."""
     pairs = [(f"state field {name}", getattr(kout.state, name), getattr(pout.state, name))
              for name in ts.FIELDS]
     pairs += [(name, getattr(kout, name), getattr(pout, name))
               for name in ("committed", "won", "lost")]
     pairs += list(zip(tk.TickFlags._fields, kout.flags, pout.flags))
+    check((kout.telem is None) == (pout.telem is None), f"{tag}: telem presence differs")
+    if pout.telem is not None:
+        pairs += [(f"telem {name}", a, b.to(torch.int32)) for name, a, b in
+                  zip(tk.TelemAggregate._fields, kout.telem, pout.telem)]
     err = 0
     for name, a, b in pairs:
         check(a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name} shape or dtype differs")
@@ -326,6 +388,17 @@ def _flag_grid(name):
     return out
 
 
+def _hier_telem(flags, name, telem=True):
+    """``flags`` with the hier rule and, if asked, the fold (K3: with its
+    recycle reset of the fold's watermark)."""
+    out = dict(flags, has_hier=True)
+    if telem:
+        out["has_telem"] = True
+        if name == "quorum_multiround":
+            out["purge_telem"] = True
+    return out
+
+
 # the variant each kernel runs on the main path, timed at its shape
 MAIN_VARIANT = {
     "quorum_step_dense": dict(do_tick=True, track_contact=True, has_votes=False),
@@ -333,81 +406,175 @@ MAIN_VARIANT = {
     "quorum_multiround": dict(do_tick=False, track_contact=False, has_votes=False,
                               has_churn=True),
 }
+# the hier main path's K3 (rung 5 with hier and the fold on), without the
+# fold, which is timed on its own
+HIER_VARIANT = dict(MAIN_VARIANT["quorum_multiround"], has_hier=True,
+                    purge_telem=True)
+TELEM_VARIANT = dict(k=8, count_reads=False, count_kv=False)
 
 
-def phase_kernels(torch, ts, tk, dev):
-    g, p = 100_000, 5
+def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag):
+    st_k = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
+    agg = tk.telem_fold(st_k, k, count_reads, count_kv)
+    pst, pagg = tk.telem_fold_impl(st_p, k, count_reads, count_kv)
+    torch.cuda.synchronize()
+    err = 0
+    pairs = [(f"telem {n}", a, b.to(torch.int32))
+             for n, a, b in zip(tk.TelemAggregate._fields, agg, pagg)]
+    pairs.append(("telem_prev_committed", st_k.telem_prev_committed,
+                  pst.telem_prev_committed))
+    for name, a, b in pairs:
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name} shape or dtype differs")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+        check(torch.equal(a, b), f"{tag}: {name} differs")
+    return err
+
+
+def _time_step(torch, ts, tk, dev, name, flags, g, p, seed=30_000):
+    """Device time of one step kernel's launch on a restored state, its
+    bound, and its plain version's wall time, at the main path's shape."""
+    fields = random_fields(ts, seed, g, p)
+    inputs = _inputs(name, seed, g, p)
+    T = [tuple(torch.from_numpy(np.array(a)).to(dev) for a in grp) for grp in inputs]
+    st_k = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
+    entry, plain_fn = {
+        "quorum_step_dense": (tk.quorum_step_dense, tk.quorum_step_dense_impl),
+        "quorum_step": (tk.quorum_step, tk.quorum_step_impl),
+        "quorum_multiround": (tk.quorum_multiround, tk.quorum_multiround_impl),
+    }[name]
+    args = [t for grp in T for t in grp]
+    kern = lambda: entry(st_k, *args, **flags)  # noqa: E731
+    plain = lambda: plain_fn(st_p, *args, **flags)  # noqa: E731
+    saved = [t.clone() for t in st_k]
+
+    def reset():
+        for t, s in zip(st_k, saved):
+            t.copy_(s)
+
+    pout = plain()  # functional: st_p stays the input state
+    nbytes = kernel_bytes(name, inputs, flags, st_p, pout.state)
+    ops = kernel_ops(g, p, k=8 if name == "quorum_multiround" else 1)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    ms = device_ms(torch, kern, reset)
+    reset()
+    err = _equal_outputs(torch, ts, tk, kern(), pout, f"{name} timed {flags}")
+    return {
+        "ms": ms,
+        "plain_ms": wall_ms(torch, plain, iters=10),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "bytes_state_written": state_written_bytes(st_p, pout.state),
+        "shape": {"G": g, "P": p, **({"K": 8, "C": 2048} if name == "quorum_multiround"
+                                     else {"events": 4096} if name == "quorum_step" else {})},
+        "flags": flags,
+    }, err
+
+
+def _time_telem(torch, ts, tk, dev, g, p, k, count_reads, count_kv, seed=31_000):
+    fields = telem_fields(ts, seed, g, p)
+    st_k = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
+    saved = st_k.telem_prev_committed.clone()
+
+    def reset():
+        st_k.telem_prev_committed.copy_(saved)
+
+    kern = lambda: tk.telem_fold(st_k, k, count_reads, count_kv)  # noqa: E731
+    plain = lambda: tk.telem_fold_impl(st_p, k, count_reads, count_kv)  # noqa: E731
+    pst, _ = plain()
+    nbytes = telem_bytes(st_p, pst, k, count_reads, count_kv)
+    b_ms, b_by = bound_ms(nbytes, 20 * g)
+    ms = device_ms(torch, kern, reset)
+    reset()
+    err = _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv,
+                         "telem_fold timed")
+    return {
+        "ms": ms, "plain_ms": wall_ms(torch, plain, iters=10),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "shape": {"G": g, "P": p, "k": k},
+        "flags": {"count_reads": count_reads, "count_kv": count_kv},
+    }, err
+
+
+def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
     compared = 0
     max_err = dict.fromkeys(TPU_KERNELS, 0)
-    for name in TPU_KERNELS:
-        for i, flags in enumerate(_flag_grid(name)):
-            seed = 10_000 + 100 * list(TPU_KERNELS).index(name) + i
+
+    def record(name, flags, err):
+        nonlocal compared
+        max_err[name] = max(max_err[name], err)
+        if flags.get("has_hier"):
+            max_err["finish_hier"] = max(max_err["finish_hier"], err)
+        if flags.get("has_telem"):
+            max_err["telem_fold"] = max(max_err["telem_fold"], err)
+        compared += 1
+
+    for name in STEP_KERNELS:
+        grid = _flag_grid(name)
+        grid += [_hier_telem(f, name, telem=False) for f in grid]
+        grid.append(_hier_telem(MAIN_VARIANT[name], name))
+        for i, flags in enumerate(grid):
+            seed = 10_000 + 100 * STEP_KERNELS.index(name) + i
             fields = random_fields(ts, seed, g, p)
             kout, pout = _run_pair(torch, ts, tk, name, fields,
                                    _inputs(name, seed, g, p), flags, dev)
-            max_err[name] = max(max_err[name], _equal_outputs(
-                torch, ts, tk, kout, pout, f"{name} {flags}"))
-            compared += 1
-    for width in (1, 2, 3, 4, 6, 7, 8, 12):
-        for name in TPU_KERNELS:
+            record(name, flags, _equal_outputs(torch, ts, tk, kout, pout,
+                                               f"{name} {flags}"))
+    for width in (1, 2, 3, 4, 5, 6, 7, 8, 12):
+        for name in STEP_KERNELS:
             all_on = dict(_flag_grid(name)[0], do_tick=True, has_votes=True,
                           track_contact=True)
             if name == "quorum_multiround":
                 all_on["has_churn"] = True
-            for flags in (all_on, _flag_grid(name)[0]):
+            base = _flag_grid(name)[0]
+            for flags in (all_on, base, _hier_telem(all_on, name),
+                          _hier_telem(base, name, telem=False)):
                 seed = 20_000 + width
                 fields = random_fields(ts, seed, 4096, width)
                 kout, pout = _run_pair(
                     torch, ts, tk, name, fields,
                     _inputs(name, seed, 4096, width, k=4, c=64, cap=1024),
                     flags, dev)
-                max_err[name] = max(max_err[name], _equal_outputs(
+                record(name, flags, _equal_outputs(
                     torch, ts, tk, kout, pout, f"{name} P={width} {flags}"))
-                compared += 1
+    telem_cases = [(g, k, reads, kv) for k in (1, 8, 16)
+                   for reads in (False, True) for kv in (False, True)]
+    telem_cases += [(5, 8, True, True), (5, 1, False, False), (1, 8, True, False)]
+    for i, (tg, k, reads, kv) in enumerate(telem_cases):
+        fields = telem_fields(ts, 40_000 + i, tg, p)
+        record("telem_fold", {}, _compare_telem(
+            torch, ts, tk, fields, dev, k, reads, kv,
+            f"telem_fold G={tg} k={k} reads={reads} kv={kv}"))
     emit({"phase": "kernels_vs_plain", "compared": compared, "max_abs_err": max_err})
 
     timings = {}
     for name, flags in MAIN_VARIANT.items():
-        seed = 30_000
-        fields = random_fields(ts, seed, g, p)
-        inputs = _inputs(name, seed, g, p)
-        T = [tuple(torch.from_numpy(np.array(a)).to(dev) for a in grp) for grp in inputs]
-        st_k = ts.state_from_numpy(fields, dev)
-        st_p = ts.state_from_numpy(fields, dev)
-        entry, plain_fn = {
-            "quorum_step_dense": (tk.quorum_step_dense, tk.quorum_step_dense_impl),
-            "quorum_step": (tk.quorum_step, tk.quorum_step_impl),
-            "quorum_multiround": (tk.quorum_multiround, tk.quorum_multiround_impl),
-        }[name]
-        args = [t for grp in T for t in grp]
-        kern = lambda: entry(st_k, *args, **flags)  # noqa: E731
-        plain = lambda: plain_fn(st_p, *args, **flags)  # noqa: E731
-        saved = [t.clone() for t in st_k]
-
-        def reset():
-            for t, s in zip(st_k, saved):
-                t.copy_(s)
-
-        pout = plain()  # functional: st_p stays the input state
-        nbytes = kernel_bytes(name, inputs, flags, st_p, pout.state)
-        ops = kernel_ops(g, p, k=8 if name == "quorum_multiround" else 1)
-        b_ms, b_by = bound_ms(nbytes, ops)
-        ms = device_ms(torch, kern, reset)
-        reset()
-        max_err[name] = max(max_err[name], _equal_outputs(
-            torch, ts, tk, kern(), pout, f"{name} timed {flags}"))
-        compared += 1
-        timings[name] = {
-            "ms": ms,
-            "plain_ms": wall_ms(torch, plain, iters=10),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "bytes_state_written": state_written_bytes(st_p, pout.state),
-            "shape": {"G": g, "P": p, **({"K": 8, "C": 2048} if name == "quorum_multiround"
-                                         else {"events": 4096} if name == "quorum_step" else {})},
-            "flags": flags,
-            "max_abs_err": max_err[name],
-        }
+        timings[name], err = _time_step(torch, ts, tk, dev, name, flags, g, p)
+        record(name, flags, err)
+        timings[name]["max_abs_err"] = max_err[name]
         emit({"phase": "kernel_time", "name": name, **timings[name]})
+    for name in ("quorum_step_dense", "quorum_step"):
+        flags = dict(MAIN_VARIANT[name], has_hier=True)
+        t, err = _time_step(torch, ts, tk, dev, name, flags, g, p)
+        record(name, flags, err)
+        emit({"phase": "kernel_time", "name": f"{name}[hier]", **t})
+    timings["finish_hier"], err = _time_step(
+        torch, ts, tk, dev, "quorum_multiround", HIER_VARIANT, g, p)
+    record("quorum_multiround", HIER_VARIANT, err)
+    timings["finish_hier"]["max_abs_err"] = max_err["finish_hier"]
+    emit({"phase": "kernel_time", "name": "quorum_multiround[hier]",
+          **timings["finish_hier"]})
+    for reads, kv in ((False, False), (True, True)):
+        t, err = _time_telem(torch, ts, tk, dev, g, p, TELEM_VARIANT["k"], reads, kv)
+        record("telem_fold", {}, err)
+        emit({"phase": "kernel_time", "name": "telem_fold", **t})
+        if not reads:
+            timings["telem_fold"] = t
+    for name in timings:
+        timings[name]["max_abs_err"] = max_err[name]
+    emit({"phase": "kernels_checked", "compared": compared, "max_abs_err": max_err})
     return timings
 
 
@@ -416,12 +583,11 @@ def phase_kernels(torch, ts, tk, dev):
 # ----------------------------------------------------------------------
 
 
-def phase_rung5(torch, engine_mod, tk, dev, n_groups=100_000, k=8,
-                churn_block=2048, dispatches=8):
-    Engine = engine_mod.BatchedQuorumEngine
-    split = {"stage_ms": [], "h2d_ms": [], "kernel_ms": [], "d2h_ms": []}
+def timed_engine(torch, engine_mod, split):
+    """The engine class of the rung-5 drives, timing each fused dispatch's
+    parts into ``split``."""
 
-    class TimedEngine(Engine):
+    class TimedEngine(engine_mod.BatchedQuorumEngine):
         """Records the host staging time and the device time of the
         upload, the launch and the egress copy of every fused dispatch."""
 
@@ -451,6 +617,13 @@ def phase_rung5(torch, engine_mod, tk, dev, n_groups=100_000, k=8,
             return self._timed(
                 "d2h_ms", lambda: super(TimedEngine, self)._enqueue_egress(out))
 
+    return TimedEngine
+
+
+def phase_rung5(torch, engine_mod, tk, dev, n_groups=100_000, k=8,
+                churn_block=2048, dispatches=8, label="rung5"):
+    split = {"stage_ms": [], "h2d_ms": [], "kernel_ms": [], "d2h_ms": []}
+    TimedEngine = timed_engine(torch, engine_mod, split)
     eng = TimedEngine(n_groups, 5, event_cap=4 * n_groups, device_ticks=False, device=dev)
     eng._events = []
     for cid in range(1, n_groups + 1):
@@ -511,7 +684,7 @@ def phase_rung5(torch, engine_mod, tk, dev, n_groups=100_000, k=8,
     for key, s, e in eng._events:
         split[key].append(s.elapsed_time(e))
     out = {
-        "phase": "rung5",
+        "phase": label,
         "groups": n_groups, "peer_slots": 5, "rounds_per_dispatch": k,
         "dispatches": dispatches, "recycled_groups": st["recycled"],
         "blocks_checked_all_rows": checked,
@@ -528,6 +701,244 @@ def phase_rung5(torch, engine_mod, tk, dev, n_groups=100_000, k=8,
             name: (n - launches0[name]) / dispatches
             for name, n in tk.launch_counts().items()
         },
+    }
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 5: rung 5 with the hier commit rule and the telemetry fold
+# ----------------------------------------------------------------------
+
+
+def numpy_fold(live, node_state, last_index, committed, prev, row_cid, k,
+               read_count, kv_ent_index):
+    """The telemetry aggregate of a state, in plain numpy (the snapshot's
+    keys except seq, mono and rounds)."""
+    last = last_index.astype(np.int64)
+    comm = committed.astype(np.int64)
+    lag = np.where(live, np.maximum(last - comm, 0), 0)
+    bucket = np.searchsorted([1 << i for i in range(15)], lag, side="right")
+    ns = node_state.astype(np.int64)
+    masked = np.where(live, lag, -1)
+    order = np.lexsort((np.arange(masked.size), -masked))[:k]
+    return {
+        "groups": int(live.sum()),
+        "lag_hist": np.bincount(bucket[live], minlength=16).tolist(),
+        "state_counts": [int(((ns == s) & live).sum()) for s in range(5)],
+        "stalled": int((live & (comm == prev) & (lag > 0)).sum()),
+        "read_slots": int((read_count > 0).sum()),
+        "kv_ents": int((kv_ent_index >= 0).sum()),
+        "topk": [(int(row_cid[r]), int(masked[r])) for r in order
+                 if masked[r] >= 0 and row_cid[r] >= 0],
+    }
+
+
+def same_snapshot(a, b):
+    """Two telemetry snapshots (or a snapshot and a numpy fold, which
+    lacks seq, mono and rounds) agree on every key they share but seq
+    and mono."""
+    if a is None or b is None:
+        return a is b
+    keys = (set(a) - {"seq", "mono"}) & set(b)
+    return all([tuple(x) for x in a[key]] == [tuple(x) for x in b[key]]
+               if key == "topk" else a[key] == b[key] for key in keys)
+
+
+class HierRung5Model:
+    """Numpy expectation of the hier rung-5 drive: every row leads 5
+    voters with near slots {0,1,2} and sub-quorum 2; the commit candidate
+    is max(3rd largest match, 2nd largest near match).  Three of five
+    slots ack each round, by row class: (0,1,2) all at the tenant's next
+    index; (0,1,3) with slot 3 one behind, where the near rule closes
+    ahead of the classic one; (0,3,4) with the leader's own slot up to 6
+    ahead, where the near rule is behind.  Every 97th row's followers
+    re-send index 1, so its watermark stalls while its lag grows."""
+
+    def __init__(self, n):
+        self.rows = np.arange(n, dtype=np.int64)
+        self.cls = self.rows % 3
+        self.frozen = self.rows % 97 == 5
+        self.slots = np.array([[0, 1, 2], [0, 1, 3], [0, 3, 4]])[self.cls].T
+        self.match = np.zeros((n, 5), np.int64)
+        self.match[:, 0] = 1
+        self.last = np.ones(n, np.int64)
+        self.committed = np.zeros(n, np.int64)
+        self._ahead = np.where(self.cls == 2, self.rows % 7, 0)
+        self._behind = (self.cls == 1).astype(np.int64)
+        self._frozen_rows = np.nonzero(self.frozen)[0]
+
+    def values(self, rel, out=None):
+        """The (3, G) ack values of a round, into ``out`` if given (the
+        drive fills one int32 buffer per round, as plain rung 5 does)."""
+        v = np.empty((3, rel.size), np.int64) if out is None else out
+        np.add(rel, self._ahead, out=v[0], casting="unsafe")
+        v[1] = rel
+        np.subtract(rel, self._behind, out=v[2], casting="unsafe")
+        v[1:, self._frozen_rows] = 1
+        return v
+
+    def round(self, recycled, v):
+        self.match[recycled] = 0
+        self.match[recycled, 0] = 1
+        self.committed[recycled] = 0
+        self.last[recycled] = 1
+        for j in range(3):
+            cell = (self.rows, self.slots[j])
+            self.match[cell] = np.maximum(self.match[cell], v[j])
+        self.last = np.maximum(self.last, self.match[:, 0])
+        classic = -np.sort(-self.match, axis=1)[:, 2]
+        near = -np.sort(-self.match[:, :3], axis=1)[:, 1]
+        q = np.maximum(classic, near)
+        adv = (q > self.committed) & (q >= 1)
+        self.committed[adv] = q[adv]
+
+
+def phase_rung5_hier_telem(torch, engine_mod, tk, ts, dev, plain, n_groups=100_000,
+                           k=8, churn_block=2048, dispatches=8):
+    split = {"stage_ms": [], "h2d_ms": [], "kernel_ms": [], "d2h_ms": []}
+    TimedEngine = timed_engine(torch, engine_mod, split)
+    eng = TimedEngine(n_groups, 5, event_cap=4 * n_groups, device_ticks=False, device=dev)
+    eng._events = []
+    eng.enable_telem()
+    for cid in range(1, n_groups + 1):
+        eng.add_group(cid, node_ids=[1, 2, 3, 4, 5], self_id=1)
+        eng.set_hier(cid, [1, 2, 3], 2)
+        eng.set_leader(cid, term=1, term_start=1, last_index=1)
+    eng._upload_dirty()
+    model = HierRung5Model(n_groups)
+    rows3 = np.concatenate([model.rows] * 3).astype(np.int32)
+    slots3 = model.slots.reshape(-1).astype(np.int32)
+    rel = np.ones(n_groups, np.int64)
+    live = np.arange(1, n_groups + 1, dtype=np.int64)
+    st = {"next_cid": n_groups + 1, "churn_at": 0, "recycled": 0}
+    blocks = []  # per block: [(recycled rows, rel)] and its row_cid
+    vbuf = np.empty((3, n_groups), np.int32)
+
+    def stage_block():
+        rounds = []
+        for _ in range(k):
+            lo = st["churn_at"] % n_groups
+            hi = min(lo + churn_block, n_groups)
+            for i in range(lo, hi):
+                eng.stage_recycle(int(live[i]), st["next_cid"], term=1,
+                                  term_start=1, last_index=1)
+                live[i] = st["next_cid"]
+                st["next_cid"] += 1
+                rel[i] = 1
+                st["recycled"] += 1
+            st["churn_at"] += churn_block
+            rel[:] += 1
+            eng.ack_block(rows3, slots3, model.values(rel, vbuf).reshape(-1))
+            eng.begin_round()
+            rounds.append((np.arange(lo, hi), rel.copy()))
+        blocks.append((rounds, eng.row_cids()))
+
+    fold_events = []
+    orig_fold = tk._telem_launch
+
+    def timed_fold(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig_fold(*a, **kw)
+        e.record()
+        fold_events.append((s, e))
+        return out
+
+    results, snaps, snap_ms = {}, {}, []
+
+    def take(res, block):
+        results[block] = res.committed_rel
+        t0 = time.perf_counter()
+        snaps[block] = eng.telem_snapshot()
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tk._telem_launch = timed_fold
+    try:
+        stage_block()  # warm-up block
+        take(eng.step_rounds(do_tick=False), 0)
+        for key in split:
+            split[key].clear()
+        eng._events.clear()
+        fold_events.clear()
+        snap_ms.clear()
+        st["recycled"] = 0
+        stage_ms, disp_ms = [], []
+        t_start = time.perf_counter()
+        for b in range(1, dispatches + 1):
+            t0 = time.perf_counter()
+            stage_block()
+            t1 = time.perf_counter()
+            res = eng.step_rounds(do_tick=False, pipelined=True)
+            t2 = time.perf_counter()
+            stage_ms.append((t1 - t0) * 1e3)
+            disp_ms.append((t2 - t0) * 1e3)
+            if res is not None:
+                take(res, b - 1)
+        take(eng.harvest(), dispatches)
+        elapsed = time.perf_counter() - t_start
+    finally:
+        tk._telem_launch = orig_fold
+    torch.cuda.synchronize()
+    for key, s, e in eng._events:
+        split[key].append(s.elapsed_time(e))
+    fold_ms = [s.elapsed_time(e) for s, e in fold_events]
+
+    # the expectation, block by block, against every harvested watermark
+    # and every snapshot
+    check(sorted(results) == list(range(dispatches + 1)), "rung5_hier: a block's egress is missing")
+    checked = 0
+    zeros = np.zeros(n_groups, bool)
+    for b, (rounds, row_cid) in enumerate(blocks):
+        prev = model.committed.copy()
+        for recycled, rel_r in rounds:
+            prev[recycled] = 0
+            model.round(recycled, model.values(rel_r))
+        check(np.array_equal(results[b], model.committed),
+              f"rung5_hier: block {b}'s watermarks differ from the expectation")
+        checked += 1
+        expect = numpy_fold(~zeros, np.full(n_groups, 2, np.int8), model.last,
+                            model.committed, prev, row_cid, eng.n_telem_topk,
+                            np.zeros(1), np.full(1, -1))
+        check(snaps[b] is not None and snaps[b]["rounds"] == k
+              and same_snapshot(snaps[b], expect),
+              f"rung5_hier: block {b}'s telemetry snapshot differs: {snaps[b]} vs {expect}")
+    classic = -np.sort(-model.match, axis=1)[:, 2]
+    near_ahead = int((model.committed > classic).sum())
+    check(near_ahead > 0, "rung5_hier: the near rule never closed ahead of the classic one")
+    # the last fold against a numpy fold of the state the card holds
+    f = ts.state_to_numpy(eng.dev)
+    check(np.array_equal(f["committed"], model.committed), "rung5_hier: final state differs")
+    check(np.array_equal(f["telem_prev_committed"], f["committed"]),
+          "rung5_hier: the fold did not advance its watermark")
+    final = numpy_fold(f["live"], f["node_state"], f["last_index"], f["committed"],
+                       prev, eng.row_cids(), eng.n_telem_topk, f["read_count"],
+                       f["kv_ent_index"])
+    check(same_snapshot(snaps[dispatches], final),
+          "rung5_hier: the last snapshot differs from the numpy fold of the final state")
+    check(len(fold_ms) == dispatches, f"rung5_hier: {len(fold_ms)} fold launches timed")
+    out = {
+        "phase": "rung5_hier_telem",
+        "groups": n_groups, "peer_slots": 5, "rounds_per_dispatch": k,
+        "dispatches": dispatches, "recycled_groups": st["recycled"],
+        "blocks_checked_all_rows": checked, "snapshots_checked": checked,
+        "rows_near_ahead_of_classic": near_ahead,
+        "stalled_last_fold": final["stalled"], "topk_last_fold": final["topk"][:3],
+        "writes_per_sec": n_groups * k * dispatches / elapsed,
+        "dispatch_ms_p50": float(np.percentile(disp_ms, 50)),
+        "dispatch_ms_p99": float(np.percentile(disp_ms, 99)),
+        "stage_block_ms_p50": float(np.percentile(stage_ms, 50)),
+        "host_staging_ms_p50": float(np.percentile(split["stage_ms"], 50)),
+        "h2d_ms_p50": float(np.percentile(split["h2d_ms"], 50)),
+        "kernel_and_fold_ms_p50": float(np.percentile(split["kernel_ms"], 50)),
+        "fold_ms_p50": float(np.percentile(fold_ms, 50)),
+        "d2h_ms_p50": float(np.percentile(split["d2h_ms"], 50)),
+        "snapshot_host_ms_p50": float(np.percentile(snap_ms, 50)),
+        "snapshot_host_ms_max": float(np.max(snap_ms)),
+        "plain_rung5_same_run": {key: plain[key] for key in (
+            "writes_per_sec", "dispatch_ms_p50", "dispatch_ms_p99",
+            "kernel_ms_p50", "d2h_ms_p50")},
     }
     emit(out)
     return out
@@ -564,10 +975,14 @@ class Lockstep:
               f"{tag}: committed_snapshot differs")
 
 
-def _op_script(torch, engine_mod, dev, mode, n=65_536, rounds=8):
-    """Returns the number of steps compared and how often each flag fired."""
+def _op_script(torch, engine_mod, dev, mode, n=65_536, rounds=8, hier_telem=False):
+    """Returns the number of steps compared and how often each flag fired.
+    ``hier_telem`` turns the hier rule on for every third group and the
+    telemetry fold on, and compares the snapshots after every step."""
     dense = {"sparse": False, "dense": True, "fused": "auto"}[mode]
     pair = Lockstep(engine_mod, dev, n, dense_ingest=dense, device_ticks=True)
+    if hier_telem:
+        pair.enable_telem()
     rng = np.random.default_rng(41)
     leaders = set()
     term = {}
@@ -578,6 +993,8 @@ def _op_script(torch, engine_mod, dev, mode, n=65_536, rounds=8):
                        election_timeout=5 if cid % 16 == 1 else 1000,
                        rand_timeout=int(4 + cid % 37) if follower else 2000,
                        check_quorum=cid % 16 == 1)
+        if hier_telem and cid % 3 == 0:
+            pair.set_hier(cid, [1, 2, 3], 2)
         term[cid] = 1
         last[cid] = 1
         if not follower:
@@ -643,6 +1060,10 @@ def _op_script(torch, engine_mod, dev, mode, n=65_536, rounds=8):
         else:
             ra, rb = pair.step(do_tick=True)
         pair.compare(ra, rb, f"{mode} round {rnd}")
+        if hier_telem:
+            sc, sh = pair.c.telem_snapshot(), pair.h.telem_snapshot()
+            check(sh is not None and same_snapshot(sc, sh),
+                  f"{mode} round {rnd}: telemetry snapshots differ: {sc} vs {sh}")
         steps += 1
         for name in seen:
             seen[name] += len(getattr(rb, name))
@@ -679,12 +1100,13 @@ def _op_script(torch, engine_mod, dev, mode, n=65_536, rounds=8):
     return steps, seen
 
 
-def phase_ops(torch, engine_mod, dev):
-    out = {"phase": "op_script", "groups": 65_536, "peer_slots": 5}
+def phase_ops(torch, engine_mod, dev, hier_telem=False):
+    out = {"phase": "op_script_hier_telem" if hier_telem else "op_script",
+           "groups": 65_536, "peer_slots": 5}
     for mode in ("sparse", "dense", "fused"):
         t0 = time.perf_counter()
         out[f"{mode}_steps_equal"], out[f"{mode}_flags"] = _op_script(
-            torch, engine_mod, dev, mode)
+            torch, engine_mod, dev, mode, hier_telem=hier_telem)
         out[f"{mode}_seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -722,11 +1144,35 @@ def main() -> int:
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "spill" in ln and not ln.strip().startswith("0 bytes")][:6]})
         timings = phase_kernels(torch, ts, tk, dev)
-        tk.reset_launch_counts()  # the main path's run starts here
-        phase_rung5(torch, engine_mod, tk, dev)
-        phase_ops(torch, engine_mod, dev)
-        launches = tk.launch_counts()
-        emit({"phase": "launches", **launches})
+        launches = dict.fromkeys(TPU_KERNELS, 0)
+
+        def main_path(label, run, kernels):
+            """One main path's run, its launch counts zeroed just before
+            and read just after; each of ``kernels`` must have launched."""
+            tk.reset_launch_counts()
+            out = run()
+            counts = tk.launch_counts()
+            emit({"phase": "launches", "path": label, **counts})
+            for name in kernels:
+                check(counts[name] > 0, f"{name} never launched on the {label} path")
+            for name in launches:
+                launches[name] += counts[name]
+            return out
+
+        rung5 = main_path("rung5", lambda: phase_rung5(torch, engine_mod, tk, dev),
+                          ("quorum_multiround",))
+        main_path("op_script", lambda: phase_ops(torch, engine_mod, dev),
+                  STEP_KERNELS)
+        main_path("rung5_hier_telem", lambda: phase_rung5_hier_telem(
+            torch, engine_mod, tk, ts, dev, rung5),
+            ("quorum_multiround", "finish_hier", "telem_fold"))
+        main_path("rung5_again", lambda: phase_rung5(
+            torch, engine_mod, tk, dev, label="rung5_again"),
+            ("quorum_multiround",))
+        main_path("op_script_hier_telem",
+                  lambda: phase_ops(torch, engine_mod, dev, hier_telem=True),
+                  STEP_KERNELS + ("finish_hier", "telem_fold"))
+        emit({"phase": "launches", "path": "all", **launches})
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
         kernels = [{

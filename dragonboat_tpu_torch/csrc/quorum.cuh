@@ -2,8 +2,9 @@
 //
 // Counterparts: dragonboat_tpu/ops/kernels.py — _kth_largest (:79),
 // _self_column (:124), vote_tally (:151), tick_step (:472), _finish_step
-// (:619, classic branch), quorum_step_impl (:520), quorum_step_dense_impl
-// (:686), _apply_recycle (:931) and quorum_multiround_impl (:1021).
+// (:619, with the has_hier branch :640-650 as the HIER template flag),
+// quorum_step_impl (:520), quorum_step_dense_impl (:686), _apply_recycle
+// (:931) and quorum_multiround_impl (:1021).
 //
 // Design.  Every update of the quorum engine is row-wise over groups: no
 // group reads another group's row.  So every kernel here runs one thread
@@ -28,19 +29,26 @@
 //
 // The same source compiles as host C++ with QS_EMULATE defined: launches
 // then run as loops over blocks and threads, which lets the arithmetic be
-// exercised without a GPU.  It runs the threads one after another, so it
-// checks the arithmetic and the binding but none of the concurrency of
-// the card (the event launch's atomicMax races): chip_smoke.py, which
-// holds the CUDA build against the plain versions on the card, is the
-// authority on the kernels.  The CUDA build never defines it.
+// exercised without a GPU.  QS_LAUNCH runs the threads one after another,
+// so it checks the arithmetic and the binding but none of the concurrency
+// of the card (the event launch's atomicMax races).  QS_LAUNCH_COOP, for
+// kernels whose threads share memory and meet at __syncthreads (the
+// telemetry fold), runs each block's threads as real host threads with a
+// barrier, blocks one after another.  chip_smoke.py, which holds the CUDA
+// build against the plain versions on the card, is the authority on the
+// kernels.  The CUDA build never defines QS_EMULATE.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
 
 #ifdef QS_EMULATE
+#include <condition_variable>
 #include <cstring>
+#include <mutex>
+#include <thread>
 #include <type_traits>
+#include <vector>
 struct qs_dim3 {
   unsigned x, y, z;
 };
@@ -48,14 +56,56 @@ inline thread_local qs_dim3 threadIdx, blockIdx, blockDim;
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __shared__ static
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
+#define cudaErrorInvalidValue 1
 inline int atomicMax(int* a, int v) {
   int o = *a;
   if (v > o) *a = v;
   return o;
 }
+inline int atomicAdd(int* a, int v) {
+  return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
+}
+inline int __clz(int x) { return __builtin_clz((unsigned)x); }
+// One block's threads meet here (QS_LAUNCH_COOP).
+struct qs_barrier {
+  std::mutex mu;
+  std::condition_variable cv;
+  unsigned n = 0, waiting = 0, gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lock(mu);
+    const unsigned g = gen;
+    if (++waiting == n) {
+      waiting = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return gen != g; });
+    }
+  }
+};
+inline qs_barrier* qs_block_barrier = nullptr;
+inline void __syncthreads() { qs_block_barrier->wait(); }
+#define QS_LAUNCH_COOP(kern, grid, block, stream, ...)                  \
+  do {                                                                  \
+    for (unsigned qs_b = 0; qs_b < unsigned(grid); ++qs_b) {            \
+      qs_barrier qs_bar;                                                \
+      qs_bar.n = unsigned(block);                                       \
+      qs_block_barrier = &qs_bar;                                       \
+      std::vector<std::thread> qs_threads;                              \
+      for (unsigned qs_t = 0; qs_t < unsigned(block); ++qs_t)           \
+        qs_threads.emplace_back([&, qs_b, qs_t] {                       \
+          blockDim = {unsigned(block), 1, 1};                           \
+          blockIdx = {qs_b, 0, 0};                                      \
+          threadIdx = {qs_t, 0, 0};                                     \
+          kern(__VA_ARGS__);                                            \
+        });                                                             \
+      for (auto& qs_th : qs_threads) qs_th.join();                      \
+    }                                                                   \
+  } while (0)
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
   return 0;
@@ -78,6 +128,7 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 #include <type_traits>
 #define QS_LAUNCH(kern, grid, block, stream, ...) \
   kern<<<(grid), (block), 0, (stream)>>>(__VA_ARGS__)
+#define QS_LAUNCH_COOP QS_LAUNCH
 #define QS_UNROLL _Pragma("unroll")
 #endif
 
@@ -100,10 +151,12 @@ constexpr int F_DO_TICK = 1;
 constexpr int F_TRACK_CONTACT = 2;
 constexpr int F_HAS_VOTES = 4;
 constexpr int F_HAS_CHURN = 8;
+constexpr int F_HAS_HIER = 16;
+constexpr int F_RESET_TELEM = 32;  // K3: a recycle zeroes telem_prev_committed
 
-// The core quorum-plane fields of QuorumState, as raw device pointers.
-// torch.bool is one byte holding 0 or 1, the layout of C++ bool.  The
-// field order is the ctypes Structure's in ops/kernels.py.
+// The quorum-, hier- and telem-plane fields of QuorumState, as raw device
+// pointers.  torch.bool is one byte holding 0 or 1, the layout of C++
+// bool.  The field order is the ctypes Structure's in ops/_build.py.
 struct State {
   int8_t* node_state;
   int32_t* term;
@@ -125,6 +178,9 @@ struct State {
   const bool* voting;
   bool* active;
   int8_t* votes;
+  const bool* near;
+  const int32_t* sub_quorum;
+  int32_t* telem_prev_committed;
   int32_t G;
   int32_t P;
 };
@@ -140,9 +196,13 @@ struct Flags {
 
 QS_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 QS_HD int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
-// int32 addition that wraps like XLA's, without signed-overflow UB
+// int32 addition and subtraction that wrap like XLA's, without
+// signed-overflow UB
 QS_HD int32_t wadd(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+QS_HD int32_t wsub(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
 template <int P>
@@ -154,6 +214,8 @@ struct Row {
   bool voting[N];
   bool active[N];
   int8_t votes[N];
+  bool near[N];        // loaded only by HIER instances (load_hier)
+  int32_t sub_quorum;  // likewise
   int8_t node_state;
   bool live;
   int32_t term, committed, last_index, term_start, quorum, self_slot;
@@ -188,6 +250,17 @@ QS_HD void load_row(Row<P>& r, const State& s, int g) {
   r.self_slot = s.self_slot[g];
   r.election_tick = s.election_tick[g];
   r.heartbeat_tick = s.heartbeat_tick[g];
+}
+
+// The hier geometry of the row (kernels.py _finish_step's has_hier
+// inputs): the near-domain mask and the sub-quorum, 0 = the rule off.
+template <int P>
+QS_HD void load_hier(Row<P>& r, const State& s, int g) {
+  const int p = width(r);
+  const size_t base = (size_t)g * p;
+  QS_UNROLL
+  for (int i = 0; i < p; ++i) r.near[i] = s.near[base + i];
+  r.sub_quorum = s.sub_quorum[g];
 }
 
 // Writes back the fields a launch may change.  ``votes`` only when the
@@ -266,19 +339,20 @@ QS_HD void sort_net<8>(int32_t* c) {
 }
 #undef QS_CE
 
-// The k-th largest (1-based) of the voting slots' match values, masked
-// slots counting as INDEX_MIN (kernels.py _kth_largest).  For P <= 8 the
-// sorting network, then the column k-1 (column 0 when k is out of range,
-// as the reference's where-chain gives); for P > 8 the rank form: each
-// value's descending rank counts the values that beat it, the slot index
-// breaking ties, and the one of rank k-1 is taken (0 when none is).
+// The k-th largest (1-based) of the row's match values where ``mask``
+// is set, unmasked slots counting as INDEX_MIN (kernels.py _kth_largest).
+// For P <= 8 the sorting network, then the column k-1 (column 0 when k
+// is out of range, as the reference's where-chain gives); for P > 8 the
+// rank form: each value's descending rank counts the values that beat
+// it, the slot index breaking ties, and the one of rank k-1 is taken (0
+// when none is).  ``mask`` is one of the row's register arrays.
 template <int P>
-QS_HD int32_t kth_largest(const Row<P>& r, int32_t k) {
+QS_HD int32_t kth_largest(const Row<P>& r, const bool* mask, int32_t k) {
   const int32_t ksel = wadd(k, -1);
   if constexpr (P > 0) {
     int32_t c[P];
     QS_UNROLL
-    for (int i = 0; i < P; ++i) c[i] = r.voting[i] ? r.match[i] : INDEX_MIN;
+    for (int i = 0; i < P; ++i) c[i] = mask[i] ? r.match[i] : INDEX_MIN;
     sort_net<P>(c);
     int32_t out = c[0];
     QS_UNROLL
@@ -289,10 +363,10 @@ QS_HD int32_t kth_largest(const Row<P>& r, int32_t k) {
     const int p = r.np;
     int32_t out = 0;
     for (int i = 0; i < p; ++i) {
-      const int32_t vi = r.voting[i] ? r.match[i] : INDEX_MIN;
+      const int32_t vi = mask[i] ? r.match[i] : INDEX_MIN;
       int32_t rank = 0;
       for (int j = 0; j < p; ++j) {
-        const int32_t vj = r.voting[j] ? r.match[j] : INDEX_MIN;
+        const int32_t vj = mask[j] ? r.match[j] : INDEX_MIN;
         rank += (vj > vi) || (vj == vi && j < i);
       }
       if (rank == ksel) out = wadd(out, vi);
@@ -336,9 +410,15 @@ QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
   r.heartbeat_tick = ht;
 }
 
-// The shared tail (kernels.py _finish_step, classic branch): vote tally,
-// won/lost on live candidates, the guarded commit, then the tick.
-template <int P, bool DO_TICK>
+// The shared tail (kernels.py _finish_step): vote tally, won/lost on
+// live candidates, the guarded commit, then the tick.  HIER adds the
+// sub-quorum rule (has_hier, :640-650): where sub_quorum > 0 the commit
+// candidate is max(classic, the sub_quorum-th largest over voting &
+// near).  The reference clamps k to >= 1 everywhere and discards the
+// near value where sub_quorum == 0, so computing it only where
+// sub_quorum > 0 (k = sub_quorum) gives the same result.  The near pick
+// runs the same network and column-0 / rank rules as the classic one.
+template <int P, bool DO_TICK, bool HIER>
 QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
                   bool& elect_due, bool& hb_due, bool& checkq_demote) {
   const int p = width(r);
@@ -351,7 +431,13 @@ QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
   const bool is_cand = r.node_state == CANDIDATE && r.live;
   won = is_cand && granted >= r.quorum;
   lost = is_cand && rejected >= r.quorum;
-  const int32_t q = kth_largest(r, r.quorum);
+  int32_t q = kth_largest(r, r.voting, r.quorum);
+  if (HIER && r.sub_quorum > 0) {
+    bool near_voting[Row<P>::N];
+    QS_UNROLL
+    for (int i = 0; i < p; ++i) near_voting[i] = r.voting[i] && r.near[i];
+    q = imax(q, kth_largest(r, near_voting, r.sub_quorum));
+  }
   const bool is_leader = r.node_state == LEADER && r.live;
   if (is_leader && q > r.committed && q >= r.term_start) r.committed = q;
   if (DO_TICK) {
@@ -423,7 +509,7 @@ QS_HD void store_flags(const Flags& f, int g, bool won, bool lost, bool e,
 }
 
 // K1: quorum_step_dense, in place.
-template <int P, bool DO_TICK, bool TRACK, bool VOTES>
+template <int P, bool DO_TICK, bool TRACK, bool VOTES, bool HIER>
 __global__ void dense_kernel(State s, const int32_t* ack_max,
                              const bool* touched, const int8_t* vote_new,
                              Flags f) {
@@ -431,11 +517,12 @@ __global__ void dense_kernel(State s, const int32_t* ack_max,
   if (g >= s.G) return;
   Row<P> r;
   load_row(r, s, g);
+  if (HIER) load_hier(r, s, g);
   const size_t base = (size_t)g * width(r);
   ingest_dense<P, TRACK, VOTES, false>(r, ack_max + base, touched + base,
                                        VOTES ? vote_new + base : nullptr);
   bool won, lost, e, h, c;
-  finish<P, DO_TICK>(r, s, g, won, lost, e, h, c);
+  finish<P, DO_TICK, HIER>(r, s, g, won, lost, e, h, c);
   store_row<P, VOTES, false>(r, s, g);
   store_flags(f, g, won, lost, e, h, c);
 }
@@ -479,12 +566,13 @@ __global__ void sparse_events_kernel(State s, const int32_t* ack_g,
 
 // K2, second launch: the row pass after the events — next, the contact
 // reset, last_index, then the shared tail.
-template <int P, bool DO_TICK, bool TRACK>
+template <int P, bool DO_TICK, bool TRACK, bool HIER>
 __global__ void sparse_rows_kernel(State s, const bool* contacted, Flags f) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= s.G) return;
   Row<P> r;
   load_row(r, s, g);
+  if (HIER) load_hier(r, s, g);
   const int p = width(r);
   QS_UNROLL
   for (int i = 0; i < p; ++i) r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
@@ -492,7 +580,7 @@ __global__ void sparse_rows_kernel(State s, const bool* contacted, Flags f) {
     r.election_tick = 0;
   r.last_index = imax(r.last_index, self_column(r));
   bool won, lost, e, h, c;
-  finish<P, DO_TICK>(r, s, g, won, lost, e, h, c);
+  finish<P, DO_TICK, HIER>(r, s, g, won, lost, e, h, c);
   store_row<P, false, false>(r, s, g);
   store_flags(f, g, won, lost, e, h, c);
 }
@@ -510,7 +598,10 @@ static __global__ void churn_map_kernel(const int32_t* churn_row, int n_rounds,
 
 // K3: quorum_multiround — K rounds of (recycle, dense ingest, tail,
 // masked tick) with the row held in registers; flags OR over the rounds.
-template <int P, bool DO_TICK, bool TRACK, bool VOTES, bool CHURN>
+// A recycle keeps the hier geometry (a same-geometry tenant); with
+// reset_telem (has_telem or purge_telem) it also zeroes the row's
+// telem_prev_committed, which the fold after this launch then reads.
+template <int P, bool DO_TICK, bool TRACK, bool VOTES, bool CHURN, bool HIER>
 __global__ void multiround_kernel(State s, const int32_t* ack,
                                   const int8_t* vote_new,
                                   const int32_t* churn_map,
@@ -518,13 +609,15 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
                                   const int32_t* churn_start,
                                   const int32_t* churn_last, int n_records,
                                   const bool* tick_mask, int n_rounds,
-                                  Flags f) {
+                                  bool reset_telem, Flags f) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= s.G) return;
   Row<P> r;
   load_row(r, s, g);
+  if (HIER) load_hier(r, s, g);
   const int p = width(r);
   bool won = false, lost = false, e = false, h = false, c = false;
+  bool recycled = false;
   for (int k = 0; k < n_rounds; ++k) {
     const size_t cells = ((size_t)k * s.G + g) * p;
     if (CHURN) {
@@ -532,12 +625,13 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
       if (rec >= 0) {
         const size_t at = (size_t)k * n_records + rec;
         recycle(r, churn_term[at], churn_start[at], churn_last[at]);
+        recycled = true;
       }
     }
     ingest_dense<P, TRACK, VOTES, true>(r, ack + cells, nullptr,
                                         VOTES ? vote_new + cells : nullptr);
     bool w, l, e0, h0, c0;
-    finish<P, false>(r, s, g, w, l, e0, h0, c0);
+    finish<P, false, HIER>(r, s, g, w, l, e0, h0, c0);
     won = won || w;
     lost = lost || l;
     if (DO_TICK && tick_mask[k]) {
@@ -548,6 +642,7 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
     }
   }
   store_row<P, VOTES, CHURN>(r, s, g);
+  if (CHURN && reset_telem && recycled) s.telem_prev_committed[g] = 0;
   store_flags(f, g, won, lost, e, h, c);
 }
 

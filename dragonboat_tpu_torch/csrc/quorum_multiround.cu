@@ -1,8 +1,9 @@
 // K3: quorum_multiround on Hopper — K rounds with in-program churn.
 //
 // Replaces dragonboat_tpu/ops/kernels.py quorum_multiround_impl (:1021)
-// with _apply_recycle (:931) and, per round, the dense ingest and tail
-// of K1.  A pre-pass turns the (K, C) recycle records into a (K, G)
+// with _apply_recycle (:931, its telem reset under F_RESET_TELEM) and,
+// per round, the dense ingest and tail of K1 (the HIER instances load
+// the hier geometry once per block).  A pre-pass turns the (K, C) recycle records into a (K, G)
 // row -> record map; the main launch then walks the K rounds per row with
 // the row held in registers, so the state is read once and written once
 // per block.  Bound: the (K, G, P) int32 ack block dominates — 160 B per
@@ -22,6 +23,7 @@ extern "C" int qs_multiround(const qs::State* s, const int32_t* ack,
   const qs::Flags fl = *f;
   const cudaStream_t cs = (cudaStream_t)stream;
   const bool churn = flags & qs::F_HAS_CHURN;
+  const bool reset_telem = flags & qs::F_RESET_TELEM;
   if (st.G == 0) return 0;
   if (churn) {
     const cudaError_t e = cudaMemsetAsync(
@@ -41,14 +43,18 @@ extern "C" int qs_multiround(const qs::State* s, const int32_t* ack,
       qs::with_bool(flags & qs::F_TRACK_CONTACT, [&](auto track) {
         qs::with_bool(flags & qs::F_HAS_VOTES, [&](auto votes) {
           qs::with_bool(churn, [&](auto cc) {
-            auto kern = qs::multiround_kernel<decltype(pc)::value,
-                                              decltype(tick)::value,
-                                              decltype(track)::value,
-                                              decltype(votes)::value,
-                                              decltype(cc)::value>;
-            QS_LAUNCH(kern, qs::grid_for(st.G), qs::BLOCK, cs, st, ack,
-                      vote_new, churn_map, churn_term, churn_start,
-                      churn_last, n_records, tick_mask, n_rounds, fl);
+            qs::with_bool(flags & qs::F_HAS_HIER, [&](auto hier) {
+              auto kern = qs::multiround_kernel<decltype(pc)::value,
+                                                decltype(tick)::value,
+                                                decltype(track)::value,
+                                                decltype(votes)::value,
+                                                decltype(cc)::value,
+                                                decltype(hier)::value>;
+              QS_LAUNCH(kern, qs::grid_for(st.G), qs::BLOCK, cs, st, ack,
+                        vote_new, churn_map, churn_term, churn_start,
+                        churn_last, n_records, tick_mask, n_rounds,
+                        reset_telem, fl);
+            });
           });
         });
       });

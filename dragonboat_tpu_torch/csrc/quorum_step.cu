@@ -1,7 +1,8 @@
 // K2: the sparse quorum_step on Hopper, one source and two launches.
 //
 // Replaces dragonboat_tpu/ops/kernels.py quorum_step_impl (:520) with its
-// tail _finish_step (:619) and tick_step (:472).  The event launch does
+// tail _finish_step (:619, with the has_hier branch :640-650 as the HIER
+// instances of the row launch) and tick_step (:472).  The event launch does
 // the scatter-max of the acks with atomicMax on int32 match and plain
 // byte stores of ``true`` into active and the (G,) contacted scratch
 // (idempotent, so no atomics are needed); the row launch is K1's tail.
@@ -46,10 +47,14 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
   qs::with_p(st.P, [&](auto pc) {
     qs::with_bool(flags & qs::F_DO_TICK, [&](auto tick) {
       qs::with_bool(track, [&](auto tc) {
-        auto kern = qs::sparse_rows_kernel<decltype(pc)::value,
-                                           decltype(tick)::value,
-                                           decltype(tc)::value>;
-        QS_LAUNCH(kern, qs::grid_for(st.G), qs::BLOCK, cs, st, contacted, fl);
+        qs::with_bool(flags & qs::F_HAS_HIER, [&](auto hier) {
+          auto kern = qs::sparse_rows_kernel<decltype(pc)::value,
+                                             decltype(tick)::value,
+                                             decltype(tc)::value,
+                                             decltype(hier)::value>;
+          QS_LAUNCH(kern, qs::grid_for(st.G), qs::BLOCK, cs, st, contacted,
+                    fl);
+        });
       });
     });
   });

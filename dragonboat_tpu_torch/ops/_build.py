@@ -25,7 +25,8 @@ blog = get_logger("ops.build")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("quorum_step_dense.cu", "quorum_step.cu", "quorum_multiround.cu")
+SOURCES = ("quorum_step_dense.cu", "quorum_step.cu", "quorum_multiround.cu",
+           "telem_fold.cu")
 HEADERS = ("quorum.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + [
@@ -40,7 +41,8 @@ build_info: dict = {}
 
 
 class CState(ctypes.Structure):
-    """``qs::State`` in ``csrc/quorum.cuh``: the quorum-plane pointers."""
+    """``qs::State`` in ``csrc/quorum.cuh``: the quorum-, hier- and
+    telem-plane pointers, in the same order."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
@@ -49,7 +51,8 @@ class CState(ctypes.Structure):
             "quorum", "self_slot", "election_tick", "heartbeat_tick",
             "rand_timeout", "election_timeout", "heartbeat_timeout",
             "electable", "check_quorum_on", "live", "match", "next",
-            "voting", "active", "votes",
+            "voting", "active", "votes", "near", "sub_quorum",
+            "telem_prev_committed",
         )
     ] + [("G", ctypes.c_int32), ("P", ctypes.c_int32)]
 
@@ -78,6 +81,9 @@ _SIGNATURES = {
     #               n_rounds, churn_map, flags_out, flags, stream)
     "qs_multiround": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT,
                       _VP, _VP, _INT, _VP],
+    # qs_telem(state, read_count, n_read_slots, kv_ent_index, n_kv_ents, k,
+    #          out, cand, n_cand, flags, stream)
+    "qs_telem": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP],
 }
 
 

@@ -19,15 +19,21 @@ The device boundary:
   device state) waits on that event.  The copy is enqueued BEFORE the
   next launch because the next block updates ``committed`` in place: a
   copy enqueued later would read the next block's watermarks;
+* with the telemetry fold on, the fold's fixed-size aggregate block is
+  copied the same way, under the same event; ``telem_snapshot`` turns
+  the last harvested one into a dict;
 * ``device=None`` means CUDA; the engine raises when there is none.  The
   CPU runs the plain versions only when ``device="cpu"`` is asked for.
 
-Planes of later slices (reads, devsm, hier, telemetry, observability,
-device profiling, warm-up compilation, ``sharding=``) raise
-:class:`NotImplementedError`.
+The hier and telemetry planes sit behind one-way latches (``set_hier``,
+``enable_telem``), as in the reference: until a latch flips, every
+dispatch runs without the plane and the row syncs skip its fields.
+Planes of later slices (reads, devsm, observability, device profiling,
+warm-up compilation, ``sharding=``) raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -37,25 +43,33 @@ import torch
 from ..platform import pick_device
 from . import _build
 from .kernels import (
+    TELEM_HEAD,
+    TELEM_LAG_BUCKETS,
+    TELEM_STATES,
+    TELEM_TOPK,
     flag_block,
     quorum_multiround,
     quorum_step,
     quorum_step_dense,
+    telem_block,
 )
 from .state import (
     CANDIDATE,
+    DEVSM_PLANE_FIELDS,
     FIELDS,
     FOLLOWER,
+    HIER_PLANE_FIELDS,
     KV_ENT_SLOTS,
     KV_SLOTS,
     LEADER,
+    READ_PLANE_FIELDS,
     READ_SLOTS,
+    TELEM_PLANE_FIELDS,
     VOTE_GRANT,
     VOTE_NONE,
     VOTE_REJECT,
     HostMirror,
     QuorumState,
-    field_plane,
 )
 
 # Event batches are padded to fixed sizes (the reference's jit shape).
@@ -63,10 +77,6 @@ DEFAULT_EVENT_CAP = 4096
 
 # Rebase a row when relative indexes pass this (well clear of int32 max).
 REBASE_THRESHOLD = 1 << 30
-
-# Mirror fields the rare-path row syncs move: the core quorum plane.  The
-# other planes stay at their reset values until their slices land.
-_SYNC_KEYS = tuple(k for k in FIELDS if field_plane(k) == "quorum")
 
 _TORCH_OF = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
              np.dtype(np.int8): torch.int8, np.dtype(np.bool_): torch.bool}
@@ -164,32 +174,41 @@ class _RoundBuf:
 
 
 class _Egress:
-    """One launch's watermark and flag block on their way to the host.
-    On CUDA: pinned host tensors filled by ``non_blocking`` copies enqueued
-    on the launch's stream, plus the event :meth:`wait` blocks on."""
+    """One launch's watermark, flag block and telemetry aggregate (None
+    without the fold) on their way to the host.  On CUDA: pinned host
+    tensors filled by ``non_blocking`` copies enqueued on the launch's
+    stream, plus the event :meth:`wait` blocks on."""
 
-    __slots__ = ("committed", "flags", "event")
+    __slots__ = ("committed", "flags", "telem", "event")
 
     def __init__(self, out, device: torch.device):
+        telem = None if out.telem is None else telem_block(out.telem)
         if device.type == "cuda":
             g = out.committed.shape[0]
             self.committed = torch.empty((g,), dtype=torch.int32, pin_memory=True)
             self.flags = torch.empty((5, g), dtype=torch.bool, pin_memory=True)
             self.committed.copy_(out.committed, non_blocking=True)
             self.flags.copy_(flag_block(out), non_blocking=True)
+            self.telem = None
+            if telem is not None:
+                self.telem = torch.empty(telem.shape, dtype=torch.int32, pin_memory=True)
+                self.telem.copy_(telem, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(device))
         else:
             # the state's committed is updated in place by the next step
             self.committed = out.committed.clone()
             self.flags = flag_block(out)
+            self.telem = telem
             self.event = None
 
-    def wait(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(committed (G,) int32, flags (5, G) bool) as numpy arrays."""
+    def wait(self) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """(committed (G,) int32, flags (5, G) bool, the telemetry block
+        (TELEM_HEAD + 2k,) int32 or None) as numpy arrays."""
         if self.event is not None:
             self.event.synchronize()
-        return self.committed.numpy(), self.flags.numpy()
+        telem = None if self.telem is None else self.telem.numpy()
+        return self.committed.numpy(), self.flags.numpy(), telem
 
 
 class BatchedQuorumEngine:
@@ -284,6 +303,20 @@ class BatchedQuorumEngine:
         # in-flight pipelined dispatch: (_Egress, prev_committed, row_cid
         # snapshot, row_base snapshot, n_rounds)
         self._inflight = None
+        # LATCH: set by the first enabling set_hier, never reset.  Until
+        # then near/sub_quorum are all-zero on both sides, every dispatch
+        # runs has_hier=False and the row syncs skip the hier fields.
+        self._hier_used = False
+        # LATCH: set by enable_telem, never reset; the same contract for
+        # telem_prev_committed and has_telem.
+        self._telem_used = False
+        #: top-K width of the fold's drill-down egress
+        self.n_telem_topk = TELEM_TOPK
+        # last harvested aggregate: (block, dispatch-time row_cid, rounds,
+        # mono, seq), turned into the snapshot dict by telem_snapshot
+        self._last_telem = None
+        self._telem_raw = None
+        self._telem_seq = 0
 
     # ------------------------------------------------------------------
     # planes of later slices
@@ -291,8 +324,6 @@ class BatchedQuorumEngine:
 
     enable_obs = _later("enable_obs", "device-plane observability")
     enable_devprof = _later("enable_devprof", "the device profiling plane")
-    enable_telem = _later("enable_telem", "the device telemetry fold")
-    telem_snapshot = _later("telem_snapshot", "the device telemetry fold")
     warmup_fused = _later("warmup_fused", "warm-up compilation")
     warmup_devsm = _later("warmup_devsm", "warm-up compilation")
     warm_plan = _later("warm_plan", "warm-up compilation")
@@ -309,7 +340,71 @@ class BatchedQuorumEngine:
     kv_reads_free = _later("kv_reads_free", "the device state machine")
     kv_values = _later("kv_values", "the device state machine")
     kv_restore = _later("kv_restore", "the device state machine")
-    set_hier = _later("set_hier", "the hierarchical commit plane")
+
+    # ------------------------------------------------------------------
+    # device telemetry fold
+    # ------------------------------------------------------------------
+
+    def enable_telem(self, topk: Optional[int] = None) -> None:
+        """Flip the telemetry latch: every later dispatch runs the fold
+        (``kernels.telem_fold``) after its step and ships the fixed-size
+        aggregate with its egress.  One-way.  ``topk`` sets the fold's
+        drill-down width (default ``kernels.TELEM_TOPK``)."""
+        if topk is not None:
+            self.n_telem_topk = int(topk)
+        self._telem_used = True
+
+    @property
+    def telem_enabled(self) -> bool:
+        return self._telem_used
+
+    def telem_snapshot(self) -> Optional[dict]:
+        """The last harvested telemetry aggregate as a dict, or None
+        before the first fold (or while the plane is off).  Passive: it
+        refreshes when a dispatch's egress is harvested; ``seq`` and
+        ``mono`` say how fresh it is.  The dict is built here, at the
+        consumer's cadence, not on the dispatch path."""
+        raw = self._telem_raw
+        if raw is not None:
+            self._telem_raw = None
+            self._ingest_telem(*raw)
+        t = self._last_telem
+        return dict(t) if t is not None else None
+
+    def _stage_telem(self, block: np.ndarray, row_cid: np.ndarray,
+                     rounds: int) -> None:
+        """Record one harvested aggregate block.  ``row_cid`` is the
+        DISPATCH-TIME row -> cluster id capture, so a re-registration
+        between dispatch and snapshot cannot mislabel a drill-down row."""
+        self._telem_seq += 1
+        self._telem_raw = (
+            block, row_cid, rounds, time.monotonic(), self._telem_seq
+        )
+
+    def _ingest_telem(self, block, row_cid, rounds, mono, seq) -> None:
+        """Translate an aggregate block into the snapshot dict."""
+        b, s = TELEM_LAG_BUCKETS, TELEM_LAG_BUCKETS + TELEM_STATES
+        k = (block.shape[0] - TELEM_HEAD) // 2
+        state_counts = block[b:s].astype(np.int64)
+        rows = block[TELEM_HEAD:TELEM_HEAD + k]
+        lags = block[TELEM_HEAD + k:]
+        topk = [
+            (int(row_cid[r]), int(lag))
+            for r, lag in zip(rows, lags)
+            if r >= 0 and row_cid[r] >= 0
+        ]
+        self._last_telem = {
+            "seq": seq,
+            "mono": mono,
+            "rounds": int(rounds),
+            "groups": int(state_counts.sum()),
+            "lag_hist": [int(v) for v in block[:b]],
+            "state_counts": [int(v) for v in state_counts],
+            "stalled": int(block[s]),
+            "read_slots": int(block[s + 1]),
+            "kv_ents": int(block[s + 2]),
+            "topk": topk,
+        }
 
     @property
     def fused_ready(self) -> bool:
@@ -390,6 +485,8 @@ class BatchedQuorumEngine:
         for nid, slot in slots.items():
             a["present"][row, slot] = True
             a["voting"][row, slot] = nid not in observers
+        if self._hier_used:  # else provably already clear
+            self.mirror.clear_hier(row)
         self._dirty.add(row)
         return gi
 
@@ -476,6 +573,28 @@ class BatchedQuorumEngine:
         a["match"][row, a["self_slot"][row]] = self._rel(gi, last_index)
         a["active"][row, :] = False
         self._purge_row_events(row)
+        self._dirty.add(row)
+
+    def set_hier(self, cluster_id: int, near_ids, sub_quorum: int) -> None:
+        """Install a row's hier sub-quorum geometry: the near-domain voter
+        mask and the domain-majority size the commit rule runs
+        (``kernels._finish_step`` ``has_hier``).  ``sub_quorum=0`` turns
+        the rule off for the row; on an engine whose latch is down that
+        is a no-op, so hier-off hosts never run the hier kernels."""
+        if sub_quorum <= 0 and not self._hier_used:
+            return
+        gi = self.groups[cluster_id]
+        a = self.mirror.arrays
+        row = gi.row
+        self._sync_row(row)
+        a["near"][row, :] = False
+        for nid in near_ids:
+            slot = gi.slots.get(nid)
+            if slot is not None:
+                a["near"][row, slot] = True
+        a["sub_quorum"][row] = max(int(sub_quorum), 0)
+        if sub_quorum > 0:
+            self._hier_used = True
         self._dirty.add(row)
 
     def set_candidate(self, cluster_id: int, term: int) -> None:
@@ -713,7 +832,7 @@ class BatchedQuorumEngine:
         # identical reset in-program
         self.mirror.recycle_row(
             row, term, term_start, last_index,
-            clear_reads=False, clear_kv=False, clear_telem=False,
+            clear_reads=False, clear_kv=False, clear_telem=self._telem_used,
         )
         self._committed_cache[row] = 0
         self._synced.discard(row)
@@ -781,7 +900,9 @@ class BatchedQuorumEngine:
             return None
         egress, prev_committed, row_cid, row_base, n_rounds = self._inflight
         self._inflight = None
-        committed, flags = egress.wait()
+        committed, flags, telem = egress.wait()
+        if telem is not None:
+            self._stage_telem(telem, row_cid, n_rounds)
         res = MultiRoundResult(n_rounds)
         committed = np.array(committed, dtype=np.int32)
         res.committed_rel = committed
@@ -887,6 +1008,10 @@ class BatchedQuorumEngine:
             track_contact=self.device_ticks or do_tick,
             has_votes=has_votes,
             has_churn=has_churn,
+            has_hier=self._hier_used,
+            has_telem=self._telem_used,
+            purge_telem=self._telem_used and has_churn,
+            telem_k=self.n_telem_topk,
         )
 
     def _enqueue_egress(self, out) -> _Egress:
@@ -961,9 +1086,25 @@ class BatchedQuorumEngine:
             return
         idx_np = np.asarray(todo, np.int64)
         idx = torch.from_numpy(idx_np).to(self.device)
-        for k in _SYNC_KEYS:
+        for k in self._sync_keys():
             self.mirror.arrays[k][idx_np] = getattr(self._dev, k).index_select(0, idx).cpu().numpy()
         self._synced.update(todo)
+
+    _HIER_KEYS = HIER_PLANE_FIELDS
+    _TELEM_KEYS = TELEM_PLANE_FIELDS
+
+    def _sync_keys(self) -> List[str]:
+        """Mirror fields the rare-path row syncs move between host and
+        device: the quorum plane, and the hier and telem fields once their
+        latches are up (before that both sides are all-zero by
+        construction).  The read and devsm planes are never used in the
+        port yet, so they stay at their reset values on both sides."""
+        skip = READ_PLANE_FIELDS + DEVSM_PLANE_FIELDS
+        if not self._hier_used:
+            skip += self._HIER_KEYS
+        if not self._telem_used:
+            skip += self._TELEM_KEYS
+        return [k for k in FIELDS if k not in skip]
 
     def _upload_dirty(self) -> None:
         """Copy exactly the dirty mirror rows onto the device state."""
@@ -974,7 +1115,7 @@ class BatchedQuorumEngine:
         idx_t, idx_a = self._host((rows.size,), np.int64)
         idx_a[:] = rows
         idx = self._to_device(idx_t)
-        for k in _SYNC_KEYS:
+        for k in self._sync_keys():
             host = self.mirror.arrays[k][rows]
             src_t, src_a = self._host(host.shape, host.dtype)
             src_a[...] = host
@@ -1037,7 +1178,9 @@ class BatchedQuorumEngine:
         self._voted_cells.clear()
         self._synced.clear()
         res = StepResult()
-        committed, flags = self._enqueue_egress(out).wait()
+        committed, flags, telem = self._enqueue_egress(out).wait()
+        if telem is not None:
+            self._stage_telem(telem, self._row_cid.copy(), 1)
         self._committed_cache = np.array(committed, dtype=np.int32)
         self._translate_egress(
             res, self._committed_cache, prev_committed, self._row_cid,
@@ -1103,6 +1246,9 @@ class BatchedQuorumEngine:
             # ticking rounds track contact even on a device_ticks=False engine
             track_contact=self.device_ticks or do_tick,
             has_votes=bool(votes),
+            has_hier=self._hier_used,
+            has_telem=self._telem_used,
+            telem_k=self.n_telem_topk,
         )
         return out
 
@@ -1129,6 +1275,9 @@ class BatchedQuorumEngine:
             do_tick=do_tick,
             track_contact=self.device_ticks or do_tick,
             has_votes=bool(votes),
+            has_hier=self._hier_used,
+            has_telem=self._telem_used,
+            telem_k=self.n_telem_topk,
         )
 
     # ------------------------------------------------------------------

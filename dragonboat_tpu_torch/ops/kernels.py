@@ -4,11 +4,14 @@ wrappers that launch the hand-written CUDA kernels.
 Counterpart: ``dragonboat_tpu/ops/kernels.py``.  Each ``*_impl`` function
 and helper here follows its JAX twin line by line and is functional (it
 returns new tensors).  The entry points :func:`quorum_step`,
-:func:`quorum_step_dense` and :func:`quorum_multiround` keep the
-reference's names, argument order and static flags, and update the state
-tensors IN PLACE where the reference donated them (``donate_argnums=(0,)``):
-the returned ``StepOutputs.state`` is the caller's state, and
-``StepOutputs.committed`` is its ``committed`` tensor.
+:func:`quorum_step_dense`, :func:`quorum_multiround` and
+:func:`telem_fold` keep the reference's names, argument order and static
+flags, and update the state tensors IN PLACE where the reference donated
+them (``donate_argnums=(0,)``): the returned ``StepOutputs.state`` is the
+caller's state, and ``StepOutputs.committed`` is its ``committed``
+tensor.  With ``has_telem`` a step's ``StepOutputs.telem`` is the
+:class:`TelemAggregate` of the fold run after it, whose fields are views
+of one fixed-size int32 block (:func:`telem_block`).
 
 Routing is by the device the state lies on, and by nothing else:
 
@@ -17,7 +20,9 @@ Routing is by the device the state lies on, and by nothing else:
 * CPU tensors run the plain version, whose result is copied into the
   state tensors.
 
-Each wrapper counts its kernel launches (:func:`launch_counts`).
+Each wrapper counts its kernel launches (:func:`launch_counts`); a
+launch of a step kernel's ``has_hier`` instance also counts under
+``finish_hier``, the hier commit branch it carries.
 
 Contract on event indexes: the sparse step drops events whose row or slot
 lies outside ``[0, G) x [0, P)``.  The JAX step routes invalid events to
@@ -41,9 +46,17 @@ I32 = torch.int32
 I8 = torch.int8
 BOOL = torch.bool
 
-# Width of the top-K egress of the telemetry fold (a later slice); kept so
-# the entry points take the reference's ``telem_k`` argument.
+# Device telemetry fold (reference ``kernels.py:185-190``): the aggregate
+# has a fixed size whatever G is.
+TELEM_LAG_BUCKETS = 16
+TELEM_STATES = 5   # FOLLOWER..WITNESS
 TELEM_TOPK = 8
+# The fold's flat int32 block: lag_hist, state_counts, stalled, read_slots,
+# kv_ents, then topk_row (k) and topk_lag (k).
+TELEM_HEAD = TELEM_LAG_BUCKETS + TELEM_STATES + 3
+# Threads a block of the fold's row pass (TELEM_BLOCK in csrc/telem_fold.cu):
+# each block leaves k top-K candidates in the scratch buffer.
+_TELEM_BLOCK = 256
 
 # The widest peer axis the CUDA kernels take (QS_MAX_GENERIC_P in
 # csrc/quorum.cuh); the plain versions take any width.
@@ -51,6 +64,9 @@ MAX_KERNEL_PEERS = 32
 
 # Launch-flag bits of csrc/quorum.cuh.
 _F_DO_TICK, _F_TRACK_CONTACT, _F_HAS_VOTES, _F_HAS_CHURN = 1, 2, 4, 8
+_F_HAS_HIER, _F_RESET_TELEM = 16, 32
+# ... and of csrc/telem_fold.cu.
+_F_COUNT_READS, _F_COUNT_KV = 1, 2
 
 # Optimal compare-exchange networks (Knuth TAOCP v3 §5.3.4) per width;
 # each pair (i, j) with i < j exchanges so the LARGER value lands at i —
@@ -71,7 +87,8 @@ _SORT_NETWORKS = {
         (2, 4), (3, 5), (3, 4)],
 }
 
-_LAUNCHES = {"quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0}
+_LAUNCHES = {"quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
+             "telem_fold": 0, "finish_hier": 0}
 
 
 def launch_counts() -> dict:
@@ -91,9 +108,23 @@ class TickFlags(NamedTuple):
     checkq_demote: torch.Tensor  # (G,) bool — CheckQuorum window: leader re-checks
 
 
+class TelemAggregate(NamedTuple):
+    """Fixed-size health aggregate of :func:`telem_fold` (reference
+    ``kernels.TelemAggregate``).  ``lag`` is the device commit lag
+    ``last_index - committed`` of live groups."""
+
+    lag_hist: torch.Tensor      # (B,) i32 — live groups per log2 lag bucket
+    state_counts: torch.Tensor  # (TELEM_STATES,) i32 — live groups per raft state
+    stalled: torch.Tensor       # () i32 — live, lag > 0, committed flat since last fold
+    read_slots: torch.Tensor    # () i32 — occupied ReadIndex slots (read_count > 0)
+    kv_ents: torch.Tensor       # () i32 — occupied devsm entry slots (index >= 0)
+    topk_row: torch.Tensor      # (K,) i32 — worst rows by lag; -1 = fewer than K live
+    topk_lag: torch.Tensor      # (K,) i32 — their lag values
+
+
 class StepOutputs(NamedTuple):
-    """Outputs of one step (reference ``kernels.StepOutputs``).  The plane
-    outputs after ``flags`` belong to later slices and stay None."""
+    """Outputs of one step (reference ``kernels.StepOutputs``).  The read
+    and devsm outputs belong to later slices and stay None."""
 
     state: QuorumState
     committed: torch.Tensor    # (G,) i32 rel — post-step commit watermark
@@ -105,16 +136,14 @@ class StepOutputs(NamedTuple):
     kv_read_val: Optional[torch.Tensor] = None
     kv_read_index: Optional[torch.Tensor] = None
     kv_applied: Optional[torch.Tensor] = None
-    telem: Optional[object] = None
+    telem: Optional[TelemAggregate] = None
 
 
-def _off_slice(has_reads=False, has_kv=False, has_hier=False, has_telem=False):
+def _off_slice(has_reads=False, has_kv=False):
     """Raise for a plane the port does not carry yet (ROADMAP.md queue A)."""
     for on, what in (
         (has_reads, "has_reads: the device read plane"),
         (has_kv, "has_kv: the device state machine (devsm) plane"),
-        (has_hier, "has_hier: the hierarchical commit plane"),
-        (has_telem, "has_telem: the device telemetry fold"),
     ):
         if on:
             raise NotImplementedError(
@@ -220,14 +249,71 @@ def tick_step(st: QuorumState):
     return st, TickFlags(elect_due, hb_due, checkq_demote)
 
 
+def telem_fold_impl(st: QuorumState, k: int = TELEM_TOPK,
+                    count_reads: bool = True, count_kv: bool = True):
+    """Reduce per-group health signals into one :class:`TelemAggregate`
+    and advance ``telem_prev_committed`` to this fold's watermark
+    (reference ``telem_fold``).  Functional: returns (state, aggregate)."""
+    live = st.live
+    lag = torch.where(live, torch.clamp_min(st.last_index - st.committed, 0), 0)
+    # exact integer log2 bucket = #{i < B-1 : lag >= 2^i}
+    thresholds = torch.tensor(
+        [1 << i for i in range(TELEM_LAG_BUCKETS - 1)], dtype=I32,
+        device=lag.device,
+    )
+    bucket = torch.searchsorted(thresholds, lag, right=True).to(I32)
+    bucket_ids = torch.arange(TELEM_LAG_BUCKETS, dtype=I32, device=lag.device)
+    lag_hist = (
+        (bucket[:, None] == bucket_ids[None, :]) & live[:, None]
+    ).sum(0, dtype=I32)
+    state_ids = torch.arange(TELEM_STATES, dtype=I32, device=lag.device)
+    state_counts = (
+        (st.node_state.to(I32)[:, None] == state_ids[None, :]) & live[:, None]
+    ).sum(0, dtype=I32)
+    stalled = (
+        live & (st.committed == st.telem_prev_committed) & (lag > 0)
+    ).sum(dtype=I32)
+    zero = torch.zeros((), dtype=I32, device=lag.device)
+    read_slots = (st.read_count > 0).sum(dtype=I32) if count_reads else zero
+    kv_ents = (st.kv_ent_index >= 0).sum(dtype=I32) if count_kv else zero
+    # top-K worst rows by lag, dead rows at -1: K argmax passes, each
+    # taking the FIRST maximal index, so ties go to the lower row
+    masked = torch.where(live, lag, -1).to(I32)
+    k = min(int(k), masked.shape[0])
+    rows, lags = [], []
+    for _ in range(k):
+        i = torch.argmax(masked).to(I32)
+        rows.append(i)
+        lags.append(masked[i])
+        masked = masked.clone()
+        masked[i] = INDEX_MIN
+    topk_row = torch.stack(rows)
+    topk_lag = torch.stack(lags)
+    topk_row = torch.where(topk_lag >= 0, topk_row, -1).to(I32)
+    st = st._replace(telem_prev_committed=st.committed)
+    return st, TelemAggregate(
+        lag_hist, state_counts, stalled, read_slots, kv_ents,
+        topk_row, topk_lag,
+    )
+
+
 def _finish_step(st, match, next_, active, votes, election_tick, last_index,
-                 do_tick: bool) -> StepOutputs:
+                 do_tick: bool, has_hier: bool = False) -> StepOutputs:
     """Tally/commit/tick tail shared by the sparse and dense steps."""
     granted, rejected = vote_tally(votes, st.voting, st.quorum)
     is_cand = (st.node_state == CANDIDATE) & st.live
     won = is_cand & (granted >= st.quorum)
     lost = is_cand & (rejected >= st.quorum)
     q = commit_quorum(match, st.voting, st.quorum)
+    if has_hier:
+        # hier sub-quorum rule: the near-domain k-th largest can close
+        # ahead of the far acks; the classic quorum stays the floor.  The
+        # clamp only meets _kth_largest's 1 <= k; where sub_quorum == 0
+        # the where() discards it.
+        q_near = _kth_largest(
+            match, st.voting & st.near, torch.clamp_min(st.sub_quorum, 1)
+        )
+        q = torch.where(st.sub_quorum > 0, torch.maximum(q, q_near), q)
     is_leader = (st.node_state == LEADER) & st.live
     # only current-term entries commit by counting: q >= term_start
     can_commit = is_leader & (q > st.committed) & (q >= st.term_start)
@@ -258,8 +344,9 @@ def quorum_step_impl(
     has_kv: bool = False,
 ) -> StepOutputs:
     """One sparse round: scatter-max ack ingest, contact, first-wins votes,
-    then the tail.  Functional; see the module docstring on indexes."""
-    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    then the tail, then the telemetry fold where ``has_telem`` says so.
+    Functional; see the module docstring on indexes."""
+    _off_slice(has_reads, has_kv)
     g_total, p = st.match.shape
     ag, ap = ack_g.long(), ack_p.long()
     row_ok = ack_valid & (ag >= 0) & (ag < g_total)
@@ -292,9 +379,16 @@ def quorum_step_impl(
         votes = votes.reshape(g_total, p)
     else:
         votes = st.votes
-    return _finish_step(
-        st, match, next_, active, votes, election_tick, last_index, do_tick
+    out = _finish_step(
+        st, match, next_, active, votes, election_tick, last_index, do_tick,
+        has_hier=has_hier,
     )
+    if has_telem:
+        tst, agg = telem_fold_impl(
+            out.state, telem_k, count_reads=has_reads, count_kv=has_kv,
+        )
+        out = out._replace(state=tst, telem=agg)
+    return out
 
 
 def quorum_step_dense_impl(
@@ -313,7 +407,7 @@ def quorum_step_dense_impl(
 ) -> StepOutputs:
     """Dense-ingestion twin of :func:`quorum_step_impl`: ``ack_max`` holds
     0 in untouched cells, ``vote_new`` first-wins-deduped votes."""
-    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    _off_slice(has_reads, has_kv)
     match = torch.maximum(st.match, torch.where(ack_touched, ack_max, 0))
     next_ = torch.maximum(st.next, match + 1)
     active = st.active | ack_touched
@@ -330,17 +424,27 @@ def quorum_step_dense_impl(
         )
     else:
         votes = st.votes
-    return _finish_step(
-        st, match, next_, active, votes, election_tick, last_index, do_tick
+    out = _finish_step(
+        st, match, next_, active, votes, election_tick, last_index, do_tick,
+        has_hier=has_hier,
     )
+    if has_telem:
+        # the fold LAST: it describes the state this dispatch leaves
+        tst, agg = telem_fold_impl(
+            out.state, telem_k, count_reads=has_reads, count_kv=has_kv,
+        )
+        out = out._replace(state=tst, telem=agg)
+    return out
 
 
-def _apply_recycle(st: QuorumState, row, term, start, last) -> QuorumState:
+def _apply_recycle(st: QuorumState, row, term, start, last,
+                   reset_telem: bool = True) -> QuorumState:
     """Masked leader-recycle row reset (twin: ``remove_group`` +
     ``add_group`` + ``set_leader`` for a same-geometry tenant).  Rows
-    outside [0, G) are padding and dropped.  The read, devsm and telem
-    resets of the reference belong to later slices (their planes stay at
-    reset values in the port)."""
+    outside [0, G) are padding and dropped.  Membership and the hier
+    geometry stay.  ``reset_telem`` zeroes the fresh tenant's stall
+    horizon; the read and devsm resets of the reference belong to later
+    slices (their planes stay at reset values in the port)."""
     g, p = st.match.shape
     keep = (row >= 0) & (row < g)
     rows = row[keep].long()
@@ -355,6 +459,10 @@ def _apply_recycle(st: QuorumState, row, term, start, last) -> QuorumState:
         out[rows] = value
         return out
 
+    if reset_telem:
+        st = st._replace(
+            telem_prev_committed=put(st.telem_prev_committed, 0)
+        )
     return st._replace(
         node_state=put(st.node_state, LEADER),
         live=put(st.live, True),
@@ -371,11 +479,10 @@ def _apply_recycle(st: QuorumState, row, term, start, last) -> QuorumState:
     )
 
 
-def _check_purge(has_churn, purge_reads, purge_kv, purge_telem):
+def _check_purge(has_churn, purge_reads, purge_kv):
     for on, what in (
         (purge_reads, "purge_reads: the read plane's recycle reset"),
         (purge_kv, "purge_kv: the devsm plane's recycle reset"),
-        (purge_telem, "purge_telem: the telemetry plane's recycle reset"),
     ):
         if on and has_churn:
             raise NotImplementedError(
@@ -411,25 +518,29 @@ def quorum_multiround_impl(
     round's row recycles, (2) the dense ingest of its ``-1``-sentinel ack
     block and votes, (3) tally/commit, then the tick where ``tick_mask``
     says so.  Flags OR over the rounds; the final watermark is the egress.
+    With ``has_telem`` the fold runs ONCE, on the block's final state.
 
-    The ``purge_*`` flags reset planes of later slices on recycle; the
-    port defaults them to False (the reference defaults them to True, a
-    no-op on planes never used) and raises if one is set with churn."""
-    _off_slice(has_reads, has_kv, has_hier, has_telem)
-    _check_purge(has_churn, purge_reads, purge_kv, purge_telem)
+    The ``purge_*`` flags reset a plane on recycle; the port defaults
+    them to False (the reference defaults them to True, a no-op on planes
+    never used).  ``purge_telem`` is carried; ``purge_reads`` and
+    ``purge_kv`` belong to later slices and raise if set with churn."""
+    _off_slice(has_reads, has_kv)
+    _check_purge(has_churn, purge_reads, purge_kv)
     g = st.match.shape[0]
     zeros = torch.zeros((g,), dtype=BOOL, device=st.match.device)
     won = lost = elect = hb = demote = zeros
     for r in range(ack_max.shape[0]):
         if has_churn:
             st = _apply_recycle(
-                st, churn_row[r], churn_term[r], churn_start[r], churn_last[r]
+                st, churn_row[r], churn_term[r], churn_start[r], churn_last[r],
+                reset_telem=has_telem or purge_telem,
             )
         am = ack_max[r]
         out = quorum_step_dense_impl(
             st, am.clamp_min(0), am >= 0,
             vote_new[r] if has_votes else None,
             do_tick=False, track_contact=track_contact, has_votes=has_votes,
+            has_hier=has_hier,
         )
         st = out.state
         won, lost = won | out.won, lost | out.lost
@@ -444,7 +555,14 @@ def quorum_multiround_impl(
             elect = elect | (tflags.elect_due & tm)
             hb = hb | (tflags.hb_due & tm)
             demote = demote | (tflags.checkq_demote & tm)
-    return StepOutputs(st, st.committed, won, lost, TickFlags(elect, hb, demote))
+    telem = None
+    if has_telem:
+        st, telem = telem_fold_impl(
+            st, telem_k, count_reads=has_reads, count_kv=has_kv,
+        )
+    return StepOutputs(
+        st, st.committed, won, lost, TickFlags(elect, hb, demote), telem=telem
+    )
 
 
 # ----------------------------------------------------------------------
@@ -467,9 +585,10 @@ def _flag_buffer(g: int, device) -> torch.Tensor:
     return torch.empty((5, g), dtype=BOOL, device=device)
 
 
-def _outputs(st: QuorumState, buf: torch.Tensor) -> StepOutputs:
+def _outputs(st: QuorumState, buf: torch.Tensor, telem=None) -> StepOutputs:
     return StepOutputs(
-        st, st.committed, buf[0], buf[1], TickFlags(buf[2], buf[3], buf[4])
+        st, st.committed, buf[0], buf[1], TickFlags(buf[2], buf[3], buf[4]),
+        telem=telem,
     )
 
 
@@ -483,23 +602,52 @@ def flag_block(out: StepOutputs) -> torch.Tensor:
     )
 
 
+def _telem_view(block: torch.Tensor, k: int) -> TelemAggregate:
+    """The :class:`TelemAggregate` whose fields are views of ``block``."""
+    b, s = TELEM_LAG_BUCKETS, TELEM_LAG_BUCKETS + TELEM_STATES
+    return TelemAggregate(
+        block[:b], block[b:s], block[s], block[s + 1], block[s + 2],
+        block[TELEM_HEAD:TELEM_HEAD + k], block[TELEM_HEAD + k:TELEM_HEAD + 2 * k],
+    )
+
+
+def telem_block(agg: TelemAggregate) -> torch.Tensor:
+    """The flat ``(TELEM_HEAD + 2k,)`` int32 block behind an aggregate an
+    entry point returned: the engine copies it to the host in one go."""
+    h = agg.lag_hist
+    n = TELEM_HEAD + 2 * agg.topk_row.shape[0]
+    return h.new_empty((0,)).set_(h.untyped_storage(), h.storage_offset(), (n,))
+
+
+def _pack_telem(agg: TelemAggregate) -> TelemAggregate:
+    """A plain version's aggregate copied into one flat block."""
+    k = agg.topk_row.shape[0]
+    block = torch.cat([
+        agg.lag_hist, agg.state_counts, agg.stalled[None], agg.read_slots[None],
+        agg.kv_ents[None], agg.topk_row, agg.topk_lag,
+    ]).to(I32)
+    return _telem_view(block, k)
+
+
 def _write_back(st: QuorumState, out: StepOutputs) -> StepOutputs:
     """Copy a plain version's result into the caller's state tensors (the
-    in-place contract of the entry points) and pack its flags."""
+    in-place contract of the entry points) and pack its flags and its
+    telemetry aggregate."""
     for old, new in zip(st, out.state):
         if new is not old:
             old.copy_(new)
     buf = _flag_buffer(st.match.shape[0], st.match.device)
     for i, f in enumerate((out.won, out.lost) + tuple(out.flags)):
         buf[i].copy_(f)
-    return _outputs(st, buf)
+    telem = None if out.telem is None else _pack_telem(out.telem)
+    return _outputs(st, buf, telem)
 
 
-_PEER_FIELDS = ("match", "next", "voting", "active", "votes")
+_PEER_FIELDS = ("match", "next", "voting", "active", "votes", "near")
 _STATE_DTYPES = {
     "node_state": I8, "votes": I8,
     "electable": BOOL, "check_quorum_on": BOOL, "live": BOOL,
-    "voting": BOOL, "present": BOOL, "active": BOOL,
+    "voting": BOOL, "present": BOOL, "active": BOOL, "near": BOOL,
 }
 
 
@@ -535,7 +683,9 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _run(name: str, dev: torch.device, call) -> None:
+def _run(name: str, dev: torch.device, call, has_hier: bool = False) -> None:
+    """Launch on the current stream and count it (``has_hier``: a step
+    kernel's HIER instance, counted under ``finish_hier`` too)."""
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -545,15 +695,64 @@ def _run(name: str, dev: torch.device, call) -> None:
             f"{name} kernel launch failed: {lib.qs_error_string(rc).decode()}"
         )
     _LAUNCHES[name] += 1
+    if has_hier:
+        _LAUNCHES["finish_hier"] += 1
 
 
-def _bits(do_tick, track_contact, has_votes, has_churn=False) -> int:
+def _bits(do_tick, track_contact, has_votes, has_churn=False, has_hier=False,
+          reset_telem=False) -> int:
     return (
         (_F_DO_TICK if do_tick else 0)
         | (_F_TRACK_CONTACT if track_contact else 0)
         | (_F_HAS_VOTES if has_votes else 0)
         | (_F_HAS_CHURN if has_churn else 0)
+        | (_F_HAS_HIER if has_hier else 0)
+        | (_F_RESET_TELEM if reset_telem else 0)
     )
+
+
+def telem_fold(
+    st: QuorumState, k: int = TELEM_TOPK,
+    count_reads: bool = True, count_kv: bool = True,
+) -> TelemAggregate:
+    """The telemetry fold on its own, in place: advances
+    ``st.telem_prev_committed`` and returns the aggregate (a CUDA
+    reduction on CUDA: ``csrc/telem_fold.cu``)."""
+    dev = _device_of(st)
+    if dev.type == "cpu":
+        nst, agg = telem_fold_impl(st, k, count_reads, count_kv)
+        st.telem_prev_committed.copy_(nst.telem_prev_committed)
+        return _pack_telem(agg)
+    return _telem_launch(st, dev, k, count_reads, count_kv)
+
+
+def _telem_launch(st, dev, k, count_reads, count_kv) -> TelemAggregate:
+    """Zero the aggregate block, then the row pass (counters and each
+    block's top-K candidates) and the single-block top-K merge, on the
+    current stream after whatever step ran before."""
+    cst = _cstate(st)
+    g = st.match.shape[0]
+    k = min(int(k), g)
+    n_slots, n_ents = st.read_count.shape[1], st.kv_ent_index.shape[1]
+    if count_reads:
+        _check(st.read_count, "read_count", (g, n_slots), I32)
+    if count_kv:
+        _check(st.kv_ent_index, "kv_ent_index", (g, n_ents), I32)
+    block = torch.empty((TELEM_HEAD + 2 * k,), dtype=I32, device=dev)
+    n_blocks = (g + _TELEM_BLOCK - 1) // _TELEM_BLOCK
+    cand = torch.empty((max(n_blocks * k, 1),), dtype=torch.int64, device=dev)
+    flags = (_F_COUNT_READS if count_reads else 0) | (_F_COUNT_KV if count_kv else 0)
+    _run("telem_fold", dev, lambda lib, stream: lib.qs_telem(
+        ctypes.byref(cst), _ptr(st.read_count), n_slots, _ptr(st.kv_ent_index),
+        n_ents, k, _ptr(block), _ptr(cand), cand.numel(), flags, stream,
+    ))
+    return _telem_view(block, k)
+
+
+def _with_telem(st, dev, out, has_telem, telem_k) -> StepOutputs:
+    if not has_telem:
+        return out
+    return out._replace(telem=_telem_launch(st, dev, telem_k, False, False))
 
 
 def quorum_step(
@@ -570,9 +769,10 @@ def quorum_step(
     has_kv: bool = False,
 ) -> StepOutputs:
     """ONE sparse round over K padded events, in place (K2 on CUDA:
-    ``csrc/quorum_step.cu``).  ``has_votes=False`` leaves the vote
-    arguments unread (they may be dummies)."""
-    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    ``csrc/quorum_step.cu``, then the fold with ``has_telem``).
+    ``has_votes=False`` leaves the vote arguments unread (they may be
+    dummies)."""
+    _off_slice(has_reads, has_kv)
     votes_in = (vote_g, vote_p, vote_grant, vote_valid) if has_votes else ()
     dev = _device_of(st, ack_g, ack_p, ack_val, ack_valid, *votes_in)
     if dev.type == "cpu":
@@ -580,15 +780,18 @@ def quorum_step(
             st, ack_g, ack_p, ack_val, ack_valid,
             vote_g, vote_p, vote_grant, vote_valid,
             do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+            has_hier=has_hier, has_telem=has_telem, telem_k=telem_k,
         ))
-    return _sparse_launch(
+    out = _sparse_launch(
         st, dev, (ack_g, ack_p, ack_val, ack_valid),
         (vote_g, vote_p, vote_grant, vote_valid), do_tick, track_contact,
-        has_votes,
+        has_votes, has_hier,
     )
+    return _with_telem(st, dev, out, has_telem, telem_k)
 
 
-def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes):
+def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
+                   has_hier=False):
     ack_g, ack_p, ack_val, ack_valid = acks
     vote_g, vote_p, vote_grant, vote_valid = votes
     cst = _cstate(st)
@@ -613,8 +816,8 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes):
         ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
         _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
         _ptr(vote_valid), n_votes, _ptr(contacted), ctypes.byref(cfl),
-        _bits(do_tick, track_contact, has_votes), stream,
-    ))
+        _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
+    ), has_hier)
     return _outputs(st, buf)
 
 
@@ -632,23 +835,26 @@ def quorum_step_dense(
     has_telem: bool = False,
     telem_k: int = TELEM_TOPK,
 ) -> StepOutputs:
-    """ONE dense round, in place (K1 on CUDA: ``csrc/quorum_step_dense.cu``).
-    ``has_votes=False`` leaves ``vote_new`` unread."""
-    _off_slice(has_reads, has_kv, has_hier, has_telem)
+    """ONE dense round, in place (K1 on CUDA: ``csrc/quorum_step_dense.cu``,
+    then the fold with ``has_telem``).  ``has_votes=False`` leaves
+    ``vote_new`` unread."""
+    _off_slice(has_reads, has_kv)
     dev = _device_of(st, ack_max, ack_touched, vote_new if has_votes else None)
     if dev.type == "cpu":
         return _write_back(st, quorum_step_dense_impl(
             st, ack_max, ack_touched, vote_new,
             do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+            has_hier=has_hier, has_telem=has_telem, telem_k=telem_k,
         ))
-    return _dense_launch(
+    out = _dense_launch(
         st, dev, ack_max, ack_touched, vote_new, do_tick, track_contact,
-        has_votes,
+        has_votes, has_hier,
     )
+    return _with_telem(st, dev, out, has_telem, telem_k)
 
 
 def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
-                  track_contact, has_votes):
+                  track_contact, has_votes, has_hier=False):
     cst = _cstate(st)
     g, p = st.match.shape
     _check(ack_max, "ack_max", (g, p), I32)
@@ -661,8 +867,9 @@ def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
     cfl = _cflags(buf)
     _run("quorum_step_dense", dev, lambda lib, stream: lib.qs_dense(
         ctypes.byref(cst), _ptr(ack_max), _ptr(ack_touched), _ptr(vote_new),
-        ctypes.byref(cfl), _bits(do_tick, track_contact, has_votes), stream,
-    ))
+        ctypes.byref(cfl),
+        _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
+    ), has_hier)
     return _outputs(st, buf)
 
 
@@ -686,11 +893,12 @@ def quorum_multiround(
     telem_k: int = TELEM_TOPK,
 ) -> StepOutputs:
     """K rounds with in-program churn in ONE launch, in place (K3 on CUDA:
-    ``csrc/quorum_multiround.cu``).  Arguments of disabled features
-    (votes without ``has_votes``, churn records without ``has_churn``,
-    ``tick_mask`` without ``do_tick``) are unread."""
-    _off_slice(has_reads, has_kv, has_hier, has_telem)
-    _check_purge(has_churn, purge_reads, purge_kv, purge_telem)
+    ``csrc/quorum_multiround.cu``, then the fold once with ``has_telem``).
+    Arguments of disabled features (votes without ``has_votes``, churn
+    records without ``has_churn``, ``tick_mask`` without ``do_tick``) are
+    unread."""
+    _off_slice(has_reads, has_kv)
+    _check_purge(has_churn, purge_reads, purge_kv)
     churn_in = (churn_row, churn_term, churn_start, churn_last) if has_churn else ()
     dev = _device_of(
         st, ack_max, vote_new if has_votes else None, *churn_in,
@@ -701,17 +909,21 @@ def quorum_multiround(
             st, ack_max, vote_new, churn_row, churn_term, churn_start,
             churn_last, tick_mask, do_tick=do_tick,
             track_contact=track_contact, has_votes=has_votes,
-            has_churn=has_churn,
+            has_churn=has_churn, has_hier=has_hier, has_telem=has_telem,
+            purge_telem=purge_telem, telem_k=telem_k,
         ))
-    return _multiround_launch(
+    out = _multiround_launch(
         st, dev, ack_max, vote_new,
         (churn_row, churn_term, churn_start, churn_last), tick_mask,
-        do_tick, track_contact, has_votes, has_churn,
+        do_tick, track_contact, has_votes, has_churn, has_hier,
+        reset_telem=has_telem or purge_telem,
     )
+    return _with_telem(st, dev, out, has_telem, telem_k)
 
 
 def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
-                       track_contact, has_votes, has_churn):
+                       track_contact, has_votes, has_churn, has_hier=False,
+                       reset_telem=False):
     churn_row, churn_term, churn_start, churn_last = churn
     cst = _cstate(st)
     g, p = st.match.shape
@@ -737,10 +949,11 @@ def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
         tick_mask = None
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
+    bits = _bits(do_tick, track_contact, has_votes, has_churn, has_hier,
+                 reset_telem and has_churn)
     _run("quorum_multiround", dev, lambda lib, stream: lib.qs_multiround(
         ctypes.byref(cst), _ptr(ack_max), _ptr(vote_new), _ptr(churn_row),
         _ptr(churn_term), _ptr(churn_start), _ptr(churn_last), n_records,
-        _ptr(tick_mask), k, _ptr(churn_map), ctypes.byref(cfl),
-        _bits(do_tick, track_contact, has_votes, has_churn), stream,
-    ))
+        _ptr(tick_mask), k, _ptr(churn_map), ctypes.byref(cfl), bits, stream,
+    ), has_hier)
     return _outputs(st, buf)

@@ -43,8 +43,9 @@ KV_ENT_SLOTS = 16
 KV_READ_SLOTS = 4
 
 # Field sets of the optional planes; everything else is the core quorum
-# plane.  The port's kernels touch the quorum plane only: the other planes
-# are carried at their reset values until the slices that port them.
+# plane.  The port's kernels touch the quorum, hier and telem planes; the
+# read and devsm planes are carried at their reset values until the
+# slices that port them.
 READ_PLANE_FIELDS = ("read_index", "read_count", "read_acks")
 DEVSM_PLANE_FIELDS = ("kv_value", "kv_ent_index", "kv_ent_key", "kv_ent_val")
 HIER_PLANE_FIELDS = ("near", "sub_quorum")
@@ -107,11 +108,11 @@ class QuorumState(NamedTuple):
     kv_ent_key: torch.Tensor      # (G,E) i32
     kv_ent_val: torch.Tensor      # (G,E) i32
 
-    # --- hierarchical commit plane (a later slice) -----------------------
+    # --- hierarchical commit plane ---------------------------------------
     near: torch.Tensor            # (G,P) bool
     sub_quorum: torch.Tensor      # (G,) i32; 0 = hier off
 
-    # --- device telemetry plane (a later slice) --------------------------
+    # --- device telemetry plane ------------------------------------------
     telem_prev_committed: torch.Tensor  # (G,) i32 rel
 
 
@@ -361,6 +362,12 @@ class HostMirror:
         a["kv_ent_index"][row, :] = -1
         a["kv_ent_key"][row, :] = 0
         a["kv_ent_val"][row, :] = 0
+
+    def clear_hier(self, row: int) -> None:
+        """Reset a row's hier sub-quorum geometry (the rule off).  A
+        recycle keeps it: a same-geometry tenant keeps its domains."""
+        self.arrays["near"][row, :] = False
+        self.arrays["sub_quorum"][row] = 0
 
     def clear_telem(self, row: int) -> None:
         """Reset a row's telemetry watermark."""

@@ -2,13 +2,16 @@
 versions.
 
 ``csrc/quorum.cuh`` compiles as host C++ when ``QS_EMULATE`` is defined:
-every launch becomes a loop over blocks and threads.  The test builds the
-three sources that way with the host C++ compiler, binds the library with
-the same ctypes declarations the CUDA build uses, and drives it through
-the port's own launch functions on CPU tensors, so the struct layouts,
-pointer passing, flag bits and template dispatch are exercised along with
-the row functions.  The CUDA build itself is held against the plain
-versions on the card by ``chip_smoke.py``.
+every launch becomes a loop over blocks and threads, and the telemetry
+fold's launches, whose threads share memory and meet at barriers, run
+each block's threads as real host threads with a barrier.  The test
+builds the sources that way with the host C++ compiler, binds the library
+with the same ctypes declarations the CUDA build uses, and drives it
+through the port's own launch functions on CPU tensors, so the struct
+layouts, pointer passing, flag bits and template dispatch (the HIER
+instances included) are exercised along with the row functions.  The
+CUDA build itself is held against the plain versions on the card by
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ def emulated(tmp_path_factory):
         obj = str(out / src.replace(".cu", ".o"))
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [cxx, "-std=c++17", "-O0", "-DQS_EMULATE", "-fPIC", "-w",
+            [cxx, "-std=c++17", "-O0", "-DQS_EMULATE", "-fPIC", "-w", "-pthread",
              "-x", "c++", "-c", os.path.join(_build.SRC_DIR, src), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -51,16 +54,18 @@ def emulated(tmp_path_factory):
         log, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, log
     lib = str(out / "libqs_emulate.so")
-    subprocess.run([cxx, "-shared", "-o", lib, *objs], check=True, timeout=120)
+    subprocess.run([cxx, "-shared", "-pthread", "-o", lib, *objs], check=True,
+                   timeout=120)
     return _build.bind(lib)
 
 
 @pytest.fixture
 def launch(emulated, monkeypatch):
-    def run(name, dev, call):
+    def run(name, dev, call, has_hier=False):
         rc = call(emulated, None)
         assert rc == 0
         tk._LAUNCHES[name] += 1
+        tk._LAUNCHES["finish_hier"] += has_hier
     monkeypatch.setattr(tk, "_run", run)
     tk.reset_launch_counts()
 
@@ -91,6 +96,17 @@ def _fields(seed, g, p):
     return f
 
 
+def _hier_telem(f, rng):
+    """Random near masks, sub-quorums (0 = off, some above the near
+    count) and fold watermarks on a state from :func:`_fields`."""
+    g, p = f["match"].shape
+    f["near"][:] = rng.random((g, p)) < 0.5
+    f["sub_quorum"][:] = rng.integers(0, p + 2, g)
+    f["sub_quorum"][::3] = 0
+    f["telem_prev_committed"][:] = np.where(rng.random(g) < 0.5, f["committed"], 0)
+    return f
+
+
 def _state(f):
     return ts.state_from_numpy(f, device="cpu")
 
@@ -99,6 +115,9 @@ def _assert_same(kout, pout, tag):
     for name in ts.FIELDS:
         a, b = getattr(kout.state, name), getattr(pout.state, name)
         assert torch.equal(a, b), (tag, name)
+    if pout.telem is not None:
+        for name, a, b in zip(tk.TelemAggregate._fields, kout.telem, pout.telem):
+            assert torch.equal(a, b.to(torch.int32)), (tag, name)
     for name in ("committed", "won", "lost"):
         assert torch.equal(getattr(kout, name), getattr(pout, name)), (tag, name)
     for name, a, b in zip(tk.TickFlags._fields, kout.flags, pout.flags):
@@ -184,6 +203,103 @@ def test_emulated_multiround_kernel_matches_plain(launch, p):
         )
         _assert_same(kout, pout, (p, tick, track, votes, churn))
     assert tk.launch_counts()["quorum_multiround"] == 16
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_hier_step_kernels_match_plain(launch, p):
+    """The HIER instances of K1 and K2 against the plain has_hier tail."""
+    for i, (tick, votes) in enumerate(itertools.product([False, True], repeat=2)):
+        seed = 400 * p + i
+        rng = np.random.default_rng(seed)
+        f = _hier_telem(_fields(seed, G, p), rng)
+        touched = torch.from_numpy(rng.random((G, p)) < 0.5)
+        ack = torch.from_numpy(rng.integers(0, 25, (G, p)).astype(np.int32))
+        ack = torch.where(touched, ack, 0)
+        vote_new = torch.from_numpy(rng.choice([-1, -1, 0, 1], (G, p)).astype(np.int8))
+        kout = tk._dense_launch(_state(f), CPU, ack, touched, vote_new, tick,
+                                True, votes, True)
+        pout = tk.quorum_step_dense_impl(
+            _state(f), ack, touched, vote_new, do_tick=tick, has_votes=votes,
+            has_hier=True,
+        )
+        _assert_same(kout, pout, ("dense", p, tick, votes))
+        cap = 160
+        acks = tuple(torch.from_numpy(a) for a in (
+            rng.integers(0, G, cap).astype(np.int32),
+            rng.integers(0, p, cap).astype(np.int32),
+            rng.integers(0, 25, cap).astype(np.int32),
+            rng.random(cap) < 0.9,
+        ))
+        z = torch.zeros((1,), dtype=torch.int32)
+        vts = (z, z, z.to(torch.int8), z.bool())
+        kout = tk._sparse_launch(_state(f), CPU, acks, vts, tick, True, False, True)
+        pout = tk.quorum_step_impl(
+            _state(f), *acks, *vts, do_tick=tick, has_votes=False, has_hier=True,
+        )
+        _assert_same(kout, pout, ("sparse", p, tick))
+    counts = tk.launch_counts()
+    assert counts["finish_hier"] == 8 == counts["quorum_step_dense"] + counts["quorum_step"]
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_hier_multiround_kernel_with_fold_matches_plain(launch, p):
+    """K3's HIER instances with in-program recycles, its telem reset on
+    recycle, and the fold launched after it, against the plain block."""
+    k, c = 4, 12
+    for i, (hier, telem, purge) in enumerate(itertools.product([False, True], repeat=3)):
+        seed = 500 * p + i
+        rng = np.random.default_rng(seed)
+        f = _hier_telem(_fields(seed, G, p), rng)
+        ack = np.where(rng.random((k, G, p)) < 0.5,
+                       rng.integers(0, 25, (k, G, p)), -1).astype(np.int32)
+        rows = np.full((k, c), G, np.int32)
+        for r in range(k):
+            n = rng.integers(0, c + 1)
+            rows[r, :n] = rng.choice(G, size=n, replace=False)
+        start = rng.integers(0, 5, (k, c)).astype(np.int32)
+        churn_t = tuple(torch.from_numpy(a) for a in (
+            rows, rng.integers(1, 9, (k, c)).astype(np.int32), start,
+            (start + rng.integers(0, 9, (k, c))).astype(np.int32),
+        ))
+        tick_mask = torch.ones((k,), dtype=torch.bool)
+        ack_t = torch.from_numpy(ack)
+        vote_t = torch.zeros((1, 1, 1), dtype=torch.int8)
+        st = _state(f)
+        kout = tk._multiround_launch(
+            st, CPU, ack_t, vote_t, churn_t, tick_mask, False, True, False,
+            True, hier, reset_telem=telem or purge,
+        )
+        if telem:
+            kout = kout._replace(telem=tk._telem_launch(st, CPU, 8, False, False))
+        pout = tk.quorum_multiround_impl(
+            _state(f), ack_t, vote_t, *churn_t, tick_mask, has_churn=True,
+            has_hier=hier, has_telem=telem, purge_telem=purge,
+        )
+        _assert_same(kout, pout, (p, hier, telem, purge))
+
+
+@pytest.mark.parametrize("g,k", [(1, 1), (1, 8), (5, 8), (8, 8), (8, 16),
+                                 (256, 1), (256, 8), (256, 16), (700, 16)])
+def test_emulated_telem_fold_matches_plain(launch, g, k):
+    """The two-pass fold (shared-memory counters, per-block top-K, the
+    single-block merge) against the plain fold: many tied lags, dead rows,
+    lags at 2^i - 1 and 2^i and 2^25 - 1, occupancy both ways."""
+    for i, (reads, kv) in enumerate(itertools.product([False, True], repeat=2)):
+        seed = 600 + 10 * g + k + i
+        rng = np.random.default_rng(seed)
+        f = _hier_telem(_fields(seed, g, 5), rng)
+        edges = [0, 0, 0, 1, 2, 3, 4, 7, 8, 2**14 - 1, 2**14, 2**15,
+                 2**25 - 1, 2**25]
+        f["last_index"][:] = f["committed"] + rng.choice(edges, g)
+        f["read_count"][:] = rng.integers(0, 3, f["read_count"].shape)
+        f["kv_ent_index"][:] = rng.integers(-1, 3, f["kv_ent_index"].shape)
+        st = _state(f)
+        agg = tk._telem_launch(st, CPU, k, reads, kv)
+        pst, pagg = tk.telem_fold_impl(_state(f), k, reads, kv)
+        for name, a, b in zip(tk.TelemAggregate._fields, agg, pagg):
+            assert torch.equal(a, b.to(torch.int32)), (g, k, reads, kv, name)
+        assert torch.equal(st.telem_prev_committed, pst.telem_prev_committed)
+    assert tk.launch_counts()["telem_fold"] == 4
 
 
 def test_kernel_build_needs_nvcc_and_never_falls_back(monkeypatch, tmp_path):

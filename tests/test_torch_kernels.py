@@ -340,6 +340,9 @@ def test_quorum_multiround_padded_block_matches_jax():
 # ----------------------------------------------------------------------
 
 OFF_SLICE = ["has_hier", "has_telem", "has_reads", "has_kv"]
+# planes the port carries: set alone they run; beside a plane it does not
+# carry, the refusal still comes
+PORTED = {"has_hier", "has_telem"}
 
 
 @pytest.mark.parametrize("flag", OFF_SLICE)
@@ -357,8 +360,13 @@ def test_off_slice_flags_raise(entry, flag):
         args = (torch.full((1, 4, 3), -1, dtype=torch.int32),
                 torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
                 torch.ones((1,), dtype=torch.bool))
+    kw = {flag: True}
+    if flag in PORTED:
+        out = getattr(tk, entry)(st, *args, **kw)
+        assert (out.telem is not None) == (flag == "has_telem")
+        kw["has_kv"] = True
     with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(tk, entry)(st, *args, **{flag: True})
+        getattr(tk, entry)(st, *args, **kw)
 
 
 @pytest.mark.parametrize("flag", ["purge_reads", "purge_kv", "purge_telem"])
@@ -368,10 +376,16 @@ def test_plane_purge_on_recycle_raises(flag):
     args = (torch.full((1, 4, 3), -1, dtype=torch.int32),
             torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
             torch.ones((1,), dtype=torch.bool))
+    kw = {flag: True}
+    if flag == "purge_telem":
+        # the telemetry plane is carried: its purge runs, and a purge the
+        # port does not carry, beside it, still raises
+        tk.quorum_multiround(st, *args, has_churn=True, **kw)
+        kw["purge_reads"] = True
     with pytest.raises(NotImplementedError, match="later slice"):
-        tk.quorum_multiround(st, *args, has_churn=True, **{flag: True})
+        tk.quorum_multiround(st, *args, has_churn=True, **kw)
     # without churn no recycle runs, so the flag has nothing to reset
-    tk.quorum_multiround(st, *args, has_churn=False, **{flag: True})
+    tk.quorum_multiround(st, *args, has_churn=False, **kw)
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
@@ -379,5 +393,6 @@ def test_wrappers_count_no_launch_on_the_cpu():
     f = random_fields(7000, 16, 3)
     run_dense(f, dense_inputs(7000, 16, 3))
     assert tk.launch_counts() == {
-        "quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0
+        "quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
+        "telem_fold": 0, "finish_hier": 0,
     }
