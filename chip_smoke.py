@@ -30,11 +30,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    plain ones;
 6. the op script of phase 4 again with the hier rule on a third of the
    rows and the fold on, the card's telemetry snapshot equal to the CPU's
-   after every step.
+   after every step;
+7. rung 4 (``bench.py:_run_rung4``): 65,536 groups x 5 slots, K = 16
+   rounds per dispatch, 8 pipelined dispatches of pure writes, then 8 of
+   the mixed 9:1 phase — every group writes, stages a batch of 9
+   ReadIndex reads and has followers 2 and 3 echo it, every round, and
+   the read plane of K3 confirms them in the same dispatch; every block's
+   watermarks and read egress, and the final read state, against numpy,
+   and exactly 65,536 x 9 x 16 x 8 reads confirmed;
+8. a read op script at 65,536 groups x 5 slots (reads staged singly and
+   in blocks, full and partial echo quorums, cancels, leader changes and
+   a rebase with batches pending, in-program recycles with pending
+   slots, the hier rule on a third of the rows and the fold on) through
+   the sparse path (read rounds forced dense) and the fused path, the
+   card equal to the CPU after every step in every state field, the
+   read egress and the telemetry snapshot.
 
-Each of phases 3 to 6 drives a main path: the launch counters are zeroed
-just before it and read just after, and every kernel that path runs must
-have launched.  JSON lines report what was measured; the line before the
+Phase 2 also holds the READS instances of K1 and K3 (the read plane)
+against the plain versions at 65,536 x 5 over the flag grids, and at
+4,096 groups for every peer width and S in {4, 8}.  Each of phases 3 to
+8 drives a main path: the launch counters are zeroed just before it and
+read just after, and every kernel that path runs must have launched.  JSON lines report what was measured; the line before the
 last is the card's name and power limit, the last line the result.
 """
 from __future__ import annotations
@@ -68,6 +84,10 @@ TPU_KERNELS = {  # the JAX function each CUDA kernel replaces
                     "dragonboat_tpu/ops/kernels.py:640"),
     "telem_fold": ("dragonboat_tpu_torch/csrc/telem_fold.cu",
                    "dragonboat_tpu/ops/kernels.py:213"),
+    # the READS instances of K1 and K3 (launch counter "read_plane"):
+    # read_confirm (:331) inside _read_plane; timed as K3's at rung 4
+    "read_plane": ("dragonboat_tpu_torch/csrc/quorum.cuh",
+                   "dragonboat_tpu/ops/kernels.py:362"),
 }
 STEP_KERNELS = ("quorum_step_dense", "quorum_step", "quorum_multiround")
 
@@ -99,11 +119,12 @@ def nvidia_smi_line() -> str:
 # ----------------------------------------------------------------------
 
 
-def random_fields(ts, seed, g, p):
+def random_fields(ts, seed, g, p, s=None):
+    """A random state; with ``s`` read slots it also holds pending read
+    batches and echo bits, and self slots out of range on both sides."""
     rng = np.random.default_rng(seed)
-    f = {name: np.full((g,) + tuple({"p": p, "s": ts.READ_SLOTS,
-                                      "v": ts.KV_SLOTS, "e": ts.KV_ENT_SLOTS}[a]
-                                     for a in axes), fill, dtype)
+    widths = {"p": p, "s": s or ts.READ_SLOTS, "v": ts.KV_SLOTS, "e": ts.KV_ENT_SLOTS}
+    f = {name: np.full((g,) + tuple(widths[a] for a in axes), fill, dtype)
          for name, (axes, dtype, fill) in ts.FIELDS.items()}
     f["node_state"][:] = rng.choice([0, 1, 2, 2, 2, 3, 4], g)
     f["live"][:] = rng.random(g) < 0.9
@@ -134,7 +155,25 @@ def random_fields(ts, seed, g, p):
     f["sub_quorum"][:] = rng2.integers(0, p + 2, g)
     f["sub_quorum"][::3] = 0
     f["telem_prev_committed"][:] = np.where(rng2.random(g) < 0.5, f["committed"], 0)
+    if s is not None:
+        rng3 = np.random.default_rng(seed + 13)
+        f["read_index"][:] = rng3.integers(0, 12, (g, s))
+        f["read_count"][:] = rng3.choice([0, 0, 1, 2, 5], (g, s))
+        f["read_acks"][:] = rng3.random((g, s, p)) < 0.3
+        f["self_slot"][5::17] = -1
     return f
+
+
+def read_inputs(seed, g, p, s, k=None):
+    """One dispatch's read-plane inputs: stage index (-1 = none), counts
+    (some 0: cancels) and echo bits, with a leading K axis for K3."""
+    rng = np.random.default_rng(seed + 17)
+    lead = () if k is None else (k,)
+    idx = np.where(rng.random(lead + (g, s)) < 0.35,
+                   rng.integers(0, 12, lead + (g, s)), -1).astype(np.int32)
+    cnt = rng.choice([0, 1, 3, 9], lead + (g, s)).astype(np.int32)
+    echo = rng.random(lead + (g, s, p)) < 0.35
+    return idx, cnt, echo
 
 
 def telem_fields(ts, seed, g, p):
@@ -199,11 +238,12 @@ def multiround_inputs(seed, k, g, p, c):
 # ----------------------------------------------------------------------
 
 
-def state_read_bytes(g, p, flags):
+def state_read_bytes(g, p, flags, s=0):
     """The state fields one step reads, once per row: node_state live
     committed last_index term_start quorum self_slot; match next voting
     active votes; the election clock where contact or ticks use it; the
-    other clocks, timeouts and switches where it ticks."""
+    other clocks, timeouts and switches where it ticks; with the read
+    plane, the row's ``s`` read slots (index, count, echo bits)."""
     read = 22 + 11 * p
     if flags["track_contact"] or flags["do_tick"]:
         read += 4
@@ -211,6 +251,8 @@ def state_read_bytes(g, p, flags):
         read += 18
     if flags.get("has_hier"):  # near and sub_quorum
         read += p + 4
+    if flags.get("has_reads"):
+        read += s * (8 + p)
     return g * read
 
 
@@ -230,19 +272,25 @@ def input_bytes(name, inputs, flags):
         acks, votes = inputs
         return sum(a.nbytes for a in acks) + (
             sum(a.nbytes for a in votes) if flags["has_votes"] else 0)
-    (ack, votes), (*churn, tick_mask) = inputs
+    (ack, votes), (*churn, tick_mask) = inputs[:2]
     return (ack.nbytes + (votes.nbytes if flags["has_votes"] else 0)
             + (tick_mask.nbytes if flags["do_tick"] else 0)
             + (sum(a.nbytes for a in churn) if flags["has_churn"] else 0))
 
 
 def kernel_bytes(name, inputs, flags, before, after):
-    """Bytes one launch must move on this run's data: the state it reads,
-    its inputs, the state cells it changes and its five (G,) flag
-    outputs."""
+    """Bytes one launch must move on this run's data: the state it reads
+    (the read slots once a row with the read plane), its inputs (the
+    stage and echo planes with it), the state cells it changes (read
+    slots included) and its five (G,) flag outputs (and the (2, G, S)
+    read egress)."""
     g, p = before.match.shape
-    return (state_read_bytes(g, p, flags) + input_bytes(name, inputs, flags)
-            + state_written_bytes(before, after) + 5 * g)
+    s = before.read_index.shape[1]
+    n = (state_read_bytes(g, p, flags, s) + input_bytes(name, inputs, flags)
+         + state_written_bytes(before, after) + 5 * g)
+    if flags.get("has_reads"):
+        n += sum(a.nbytes for a in inputs[-1]) + 2 * g * s * 4
+    return n
 
 
 def telem_bytes(st_before, st_after, k, count_reads, count_kv):
@@ -260,11 +308,12 @@ def telem_bytes(st_before, st_after, k, count_reads, count_kv):
     return n + int(changed.sum()) * 4
 
 
-def kernel_ops(g, p, k=1):
+def kernel_ops(g, p, k=1, s=0):
     """Integer operations per launch: ingest ~6P, the commit network ~3 per
-    compare-exchange, tally ~4P, tick and control ~40, per row and round."""
+    compare-exchange, tally ~4P, tick and control ~40, per row and round;
+    the read plane ~2P + 12 per slot and round (``s`` slots, 0 = off)."""
     ce = {1: 0, 2: 1, 3: 3, 4: 5, 5: 9, 6: 12, 7: 16, 8: 19}.get(p, p * p)
-    return g * k * (6 * p + 3 * ce + 4 * p + 40)
+    return g * k * (6 * p + 3 * ce + 4 * p + 40 + s * (2 * p + 12))
 
 
 def bound_ms(nbytes, ops):
@@ -331,6 +380,11 @@ def _equal_outputs(torch, ts, tk, kout, pout, tag):
               for name in ("committed", "won", "lost")]
     pairs += list(zip(tk.TickFlags._fields, kout.flags, pout.flags))
     check((kout.telem is None) == (pout.telem is None), f"{tag}: telem presence differs")
+    check((kout.read_done_count is None) == (pout.read_done_count is None),
+          f"{tag}: read egress presence differs")
+    if pout.read_done_count is not None:
+        pairs += [(name, getattr(kout, name), getattr(pout, name))
+                  for name in ("read_done_count", "read_done_index")]
     if pout.telem is not None:
         pairs += [(f"telem {name}", a, b.to(torch.int32)) for name, a, b in
                   zip(tk.TelemAggregate._fields, kout.telem, pout.telem)]
@@ -343,31 +397,40 @@ def _equal_outputs(torch, ts, tk, kout, pout, tag):
     return err
 
 
+def _entries(tk, name):
+    return {
+        "quorum_step_dense": (tk.quorum_step_dense, tk.quorum_step_dense_impl),
+        "quorum_step": (tk.quorum_step, tk.quorum_step_impl),
+        "quorum_multiround": (tk.quorum_multiround, tk.quorum_multiround_impl),
+    }[name]
+
+
 def _run_pair(torch, ts, tk, name, fields, inputs, flags, dev):
-    """The kernel and the plain version on the same card inputs."""
+    """The kernel and the plain version on the same card inputs (the
+    groups of ``inputs`` are the entry's positional arguments in order)."""
     st_k = ts.state_from_numpy(fields, dev)
     st_p = ts.state_from_numpy(fields, dev)
-    T = [tuple(torch.from_numpy(np.array(a)).to(dev) for a in grp) for grp in inputs]
-    if name == "quorum_step_dense":
-        kout = tk.quorum_step_dense(st_k, *T[0], **flags)
-        pout = tk.quorum_step_dense_impl(st_p, *T[0], **flags)
-    elif name == "quorum_step":
-        kout = tk.quorum_step(st_k, *T[0], *T[1], **flags)
-        pout = tk.quorum_step_impl(st_p, *T[0], *T[1], **flags)
-    else:
-        kout = tk.quorum_multiround(st_k, *T[0], *T[1], **flags)
-        pout = tk.quorum_multiround_impl(st_p, *T[0], *T[1], **flags)
+    args = [torch.from_numpy(np.array(a)).to(dev) for grp in inputs for a in grp]
+    entry, plain = _entries(tk, name)
+    kout = entry(st_k, *args, **flags)
+    pout = plain(st_p, *args, **flags)
     torch.cuda.synchronize()
     return kout, pout
 
 
-def _inputs(name, seed, g, p, k=8, c=2048, cap=4096):
+def _inputs(name, seed, g, p, k=8, c=2048, cap=4096, s=None):
+    """The entry's inputs; with ``s`` read slots the read-plane inputs
+    follow as the last group."""
     if name == "quorum_step_dense":
-        return (dense_inputs(seed, g, p),)
-    if name == "quorum_step":
-        return sparse_inputs(seed, g, p, cap)
-    ack, votes, churn, tm = multiround_inputs(seed, k, g, p, c)
-    return (ack, votes), churn + (tm,)
+        out = (dense_inputs(seed, g, p),)
+    elif name == "quorum_step":
+        out = sparse_inputs(seed, g, p, cap)
+    else:
+        ack, votes, churn, tm = multiround_inputs(seed, k, g, p, c)
+        out = (ack, votes), churn + (tm,)
+    if s is not None:
+        out += (read_inputs(seed, g, p, s, k if name == "quorum_multiround" else None),)
+    return out
 
 
 def _flag_grid(name):
@@ -411,6 +474,43 @@ MAIN_VARIANT = {
 HIER_VARIANT = dict(MAIN_VARIANT["quorum_multiround"], has_hier=True,
                     purge_telem=True)
 TELEM_VARIANT = dict(k=8, count_reads=False, count_kv=False)
+# the READS instances on their main paths, timed at 65,536 x 5, S = 4: K1
+# as the read op script's single-round read dispatch runs it, K3 as rung
+# 4's mixed phase (K = 16, no churn, no ticks, no contact)
+READS_G, READS_K = 65_536, 16
+READS_VARIANT = {
+    "quorum_step_dense": dict(MAIN_VARIANT["quorum_step_dense"], has_reads=True),
+    "quorum_multiround": dict(do_tick=False, track_contact=False, has_votes=False,
+                              has_churn=False, has_reads=True),
+}
+
+
+def _reads_grid(name):
+    """The flag grid of ``name`` with the read plane on, with and without
+    the hier rule; for K3 also the recycle purge alone (purge_reads with
+    churn, the plane off) and the fold counting read slots."""
+    base = [dict(f, has_reads=True) for f in _flag_grid(name)]
+    grid = base + [dict(f, has_hier=True) for f in base]
+    grid.append(_hier_telem(READS_VARIANT[name], name))
+    if name == "quorum_multiround":
+        grid += [dict(f, purge_reads=True) for f in _flag_grid(name) if f["has_churn"]]
+        grid.append(dict(base[-1], has_telem=True, purge_telem=True))
+    return grid
+
+
+def _reads_small(name):
+    """The READS cases run at every peer width: everything on, the hier
+    rule with it, K1 with everything else off and K3 with its recycle
+    purge alone (the plane off), and the fold after the plane."""
+    all_on = dict(_flag_grid(name)[0], do_tick=True, has_votes=True,
+                  track_contact=True, has_reads=True)
+    if name == "quorum_multiround":
+        all_on["has_churn"] = True
+        off = dict(all_on, has_reads=False, purge_reads=True)
+    else:
+        off = dict(all_on, do_tick=False, has_votes=False, track_contact=False)
+    return (all_on, dict(all_on, has_hier=True), off,
+            _hier_telem(READS_VARIANT[name], name))
 
 
 def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag):
@@ -432,20 +532,16 @@ def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag):
     return err
 
 
-def _time_step(torch, ts, tk, dev, name, flags, g, p, seed=30_000):
+def _time_step(torch, ts, tk, dev, name, flags, g, p, seed=30_000, k=8, s=None):
     """Device time of one step kernel's launch on a restored state, its
-    bound, and its plain version's wall time, at the main path's shape."""
-    fields = random_fields(ts, seed, g, p)
-    inputs = _inputs(name, seed, g, p)
-    T = [tuple(torch.from_numpy(np.array(a)).to(dev) for a in grp) for grp in inputs]
+    bound, and its plain version's wall time, at the main path's shape
+    (``k`` rounds for K3; ``s`` read slots for the READS instances)."""
+    fields = random_fields(ts, seed, g, p, s)
+    inputs = _inputs(name, seed, g, p, k=k, s=s)
     st_k = ts.state_from_numpy(fields, dev)
     st_p = ts.state_from_numpy(fields, dev)
-    entry, plain_fn = {
-        "quorum_step_dense": (tk.quorum_step_dense, tk.quorum_step_dense_impl),
-        "quorum_step": (tk.quorum_step, tk.quorum_step_impl),
-        "quorum_multiround": (tk.quorum_multiround, tk.quorum_multiround_impl),
-    }[name]
-    args = [t for grp in T for t in grp]
+    entry, plain_fn = _entries(tk, name)
+    args = [torch.from_numpy(np.array(a)).to(dev) for grp in inputs for a in grp]
     kern = lambda: entry(st_k, *args, **flags)  # noqa: E731
     plain = lambda: plain_fn(st_p, *args, **flags)  # noqa: E731
     saved = [t.clone() for t in st_k]
@@ -456,7 +552,7 @@ def _time_step(torch, ts, tk, dev, name, flags, g, p, seed=30_000):
 
     pout = plain()  # functional: st_p stays the input state
     nbytes = kernel_bytes(name, inputs, flags, st_p, pout.state)
-    ops = kernel_ops(g, p, k=8 if name == "quorum_multiround" else 1)
+    ops = kernel_ops(g, p, k=k if name == "quorum_multiround" else 1, s=s or 0)
     b_ms, b_by = bound_ms(nbytes, ops)
     ms = device_ms(torch, kern, reset)
     reset()
@@ -466,8 +562,10 @@ def _time_step(torch, ts, tk, dev, name, flags, g, p, seed=30_000):
         "plain_ms": wall_ms(torch, plain, iters=10),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
         "bytes_state_written": state_written_bytes(st_p, pout.state),
-        "shape": {"G": g, "P": p, **({"K": 8, "C": 2048} if name == "quorum_multiround"
-                                     else {"events": 4096} if name == "quorum_step" else {})},
+        "shape": {"G": g, "P": p,
+                  **({"K": k, "C": 2048} if name == "quorum_multiround"
+                     else {"events": 4096} if name == "quorum_step" else {}),
+                  **({"S": s} if s else {})},
         "flags": flags,
     }, err
 
@@ -509,6 +607,8 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
             max_err["finish_hier"] = max(max_err["finish_hier"], err)
         if flags.get("has_telem"):
             max_err["telem_fold"] = max(max_err["telem_fold"], err)
+        if flags.get("has_reads") or flags.get("purge_reads"):
+            max_err["read_plane"] = max(max_err["read_plane"], err)
         compared += 1
 
     for name in STEP_KERNELS:
@@ -539,6 +639,28 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
                     flags, dev)
                 record(name, flags, _equal_outputs(
                     torch, ts, tk, kout, pout, f"{name} P={width} {flags}"))
+    # the READS instances of K1 and K3 at the rung-4 width, then at 4,096
+    # groups for every peer width and S in {4, 8}
+    n_reads = 0
+    for name in ("quorum_step_dense", "quorum_multiround"):
+        for i, flags in enumerate(_reads_grid(name)):
+            seed = 50_000 + 100 * STEP_KERNELS.index(name) + i
+            kout, pout = _run_pair(torch, ts, tk, name, random_fields(ts, seed, READS_G, p, 4),
+                                   _inputs(name, seed, READS_G, p, s=4), flags, dev)
+            record(name, flags, _equal_outputs(torch, ts, tk, kout, pout, f"{name} {flags}"))
+            n_reads += 1
+        for width in (1, 2, 3, 4, 5, 6, 7, 8, 12):
+            for slots in (4, 8):
+                for j, flags in enumerate(_reads_small(name)):
+                    seed = 60_000 + 100 * width + 10 * slots + j
+                    kout, pout = _run_pair(
+                        torch, ts, tk, name, random_fields(ts, seed, 4096, width, slots),
+                        _inputs(name, seed, 4096, width, k=4, c=64, s=slots), flags, dev)
+                    record(name, flags, _equal_outputs(
+                        torch, ts, tk, kout, pout, f"{name} P={width} S={slots} {flags}"))
+                    n_reads += 1
+    emit({"phase": "reads_vs_plain", "compared": n_reads,
+          "max_abs_err": max_err["read_plane"]})
     telem_cases = [(g, k, reads, kv) for k in (1, 8, 16)
                    for reads in (False, True) for kv in (False, True)]
     telem_cases += [(5, 8, True, True), (5, 1, False, False), (1, 8, True, False)]
@@ -566,6 +688,13 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
     timings["finish_hier"]["max_abs_err"] = max_err["finish_hier"]
     emit({"phase": "kernel_time", "name": "quorum_multiround[hier]",
           **timings["finish_hier"]})
+    for name, flags in READS_VARIANT.items():
+        t, err = _time_step(torch, ts, tk, dev, name, flags, READS_G, p,
+                            seed=32_000, k=READS_K, s=4)
+        record(name, flags, err)
+        emit({"phase": "kernel_time", "name": f"{name}[reads]", **t})
+        if name == "quorum_multiround":
+            timings["read_plane"] = t
     for reads, kv in ((False, False), (True, True)):
         t, err = _time_telem(torch, ts, tk, dev, g, p, TELEM_VARIANT["k"], reads, kv)
         record("telem_fold", {}, err)
@@ -1113,6 +1242,333 @@ def phase_ops(torch, engine_mod, dev, hier_telem=False):
 
 
 # ----------------------------------------------------------------------
+# phase 7: rung 4, a pure-write window and the mixed 9:1 read phase
+# ----------------------------------------------------------------------
+
+
+def _p(values, q):
+    return float(np.percentile(values, q))
+
+
+def phase_rung4(torch, engine_mod, tk, ts, dev, n_groups=65_536, k=16, dispatches=8):
+    split = {"stage_ms": [], "h2d_ms": [], "kernel_ms": [], "d2h_ms": []}
+    TimedEngine = timed_engine(torch, engine_mod, split)
+    eng = TimedEngine(n_groups, 5, event_cap=4 * n_groups, device_ticks=False, device=dev)
+    eng._events = []
+    for cid in range(1, n_groups + 1):
+        eng.add_group(cid, node_ids=[1, 2, 3, 4, 5], self_id=1)
+        eng.set_leader(cid, term=1, term_start=1, last_index=1)
+    eng._upload_dirty()
+    rows = np.arange(n_groups, dtype=np.int32)
+    rows3 = np.concatenate([rows, rows, rows])
+    slots = np.repeat(np.arange(3, dtype=np.int32), n_groups)
+    row_cid = eng.row_cids()
+
+    def stage_writes(start):
+        eng.ack_block_rounds(rows3, slots, start + np.arange(k, dtype=np.int32)[:, None]
+                             + np.zeros((1, rows3.size), np.int32))
+
+    # the pure-write window, after a warm-up block
+    stage_writes(2)
+    check(np.all(eng.step_rounds(do_tick=False).committed_rel == k + 1),
+          "rung4: warm-up watermarks differ")
+    rel, expect_prev, checked, disp_ms = k + 1, None, 0, []
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        td = time.perf_counter()
+        stage_writes(rel + 1)
+        res = eng.step_rounds(do_tick=False, pipelined=True)
+        disp_ms.append((time.perf_counter() - td) * 1e3)
+        if res is not None:
+            check(np.all(res.committed_rel == expect_prev), "rung4: a write block's watermarks differ")
+            checked += 1
+        expect_prev = rel + k
+        rel += k
+    final = eng.harvest()
+    elapsed = time.perf_counter() - t0
+    check(np.all(final.committed_rel == rel) and eng.committed_index(1) == rel,
+          "rung4: the write window's final watermarks differ")
+    write = {"writes_per_sec": n_groups * k * dispatches / elapsed,
+             "dispatch_ms_p50": _p(disp_ms, 50), "dispatch_ms_p99": _p(disp_ms, 99),
+             "blocks_checked_all_rows": checked + 1}
+
+    # the mixed phase: per round one write, a batch of 9 reads and two
+    # follower echoes a group; the slot each batch rode is kept to build
+    # the expectation after the run
+    rows2 = np.concatenate([rows, rows])
+    peers2 = np.repeat(np.array([1, 2], np.int32), n_groups)
+    counts9 = np.full(n_groups, 9, np.int32)
+    blocks = []  # per block: [(rel, slots)], one entry a round
+    calls = {name: [] for name in ("ack_block", "stage_read_block", "read_ack_block",
+                                   "begin_round", "step_rounds")}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        calls[name][-1] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def mixed_dispatch():
+        nonlocal rel
+        for name in calls:
+            calls[name].append(0.0)
+        rounds = []
+        for _ in range(k):
+            rel += 1
+            timed("ack_block", eng.ack_block, rows3, slots, np.full(rows3.size, rel, np.int32))
+            sl = timed("stage_read_block", eng.stage_read_block, rows,
+                       np.full(n_groups, rel, np.int32), counts9)
+            timed("read_ack_block", eng.read_ack_block, rows2, np.concatenate([sl, sl]), peers2)
+            timed("begin_round", eng.begin_round)
+            rounds.append((rel, sl))
+        blocks.append(rounds)
+        return timed("step_rounds", eng.step_rounds, do_tick=False, pipelined=True)
+
+    results = {}
+    mixed_dispatch()  # warm-up block
+    results[0] = eng.harvest()
+    for key in split:
+        split[key].clear()
+    for key in calls:
+        calls[key].clear()
+    eng._events.clear()
+    launches0 = tk.launch_counts()
+    mtimes = []
+    t0 = time.perf_counter()
+    for b in range(1, dispatches + 1):
+        td = time.perf_counter()
+        res = mixed_dispatch()
+        mtimes.append((time.perf_counter() - td) * 1e3)
+        if res is not None:
+            results[b - 1] = res
+    results[dispatches] = eng.harvest()
+    melapsed = time.perf_counter() - t0
+    launches = {name: (n - launches0[name]) / dispatches
+                for name, n in tk.launch_counts().items()}
+    torch.cuda.synchronize()
+    for key, s0, e0 in eng._events:
+        split[key].append(s0.elapsed_time(e0))
+
+    # every block's watermarks and read egress, then the final read state
+    s = eng.n_read_slots
+    last_idx = np.zeros((n_groups, s), np.int64)
+    confirmed = 0
+    check(sorted(results) == list(range(dispatches + 1)), "rung4: a mixed block's egress is missing")
+    for b, rounds in enumerate(blocks):
+        cnt = np.zeros((n_groups, s), np.int64)
+        idx = np.full((n_groups, s), -1, np.int64)
+        for r_rel, sl in rounds:
+            cnt[rows, sl] += 9
+            idx[rows, sl] = r_rel
+            last_idx[rows, sl] = r_rel
+        res = results[b]
+        check(np.all(res.committed_rel == rounds[-1][0]), f"rung4: mixed block {b}'s watermarks differ")
+        er, es = np.nonzero(cnt)
+        check(res.read_cids is not None
+              and np.array_equal(res.read_cids, row_cid[er])
+              and np.array_equal(res.read_slots, es)
+              and np.array_equal(res.read_index_abs, idx[er, es])
+              and np.array_equal(res.read_counts, cnt[er, es]),
+              f"rung4: mixed block {b}'s read egress differs from the expectation")
+        if b > 0:
+            confirmed += int(res.read_counts.sum())
+    expected = n_groups * 9 * k * dispatches
+    check(confirmed == expected, f"rung4: {confirmed} reads confirmed, expected {expected}")
+    check(eng.committed_index(1) == rel, "rung4: committed_index(1) is not the last staged index")
+    f = ts.state_to_numpy(eng.dev)
+    check(np.all(f["committed"] == rel), "rung4: final watermarks differ")
+    check(not f["read_count"].any() and not f["read_acks"].any(),
+          "rung4: read slots left pending")
+    check(np.array_equal(f["read_index"], last_idx), "rung4: final read_index differs")
+    out = {
+        "phase": "rung4",
+        "groups": n_groups, "peer_slots": 5, "read_slots": s,
+        "rounds_per_dispatch": k, "dispatches": dispatches,
+        "write_window": write,
+        "mixed": {
+            "read_ratio": 9,
+            "reads_confirmed": confirmed,
+            "reads_per_sec": confirmed / melapsed,
+            "writes_per_sec": n_groups * k * dispatches / melapsed,
+            "ops_per_sec": (confirmed + n_groups * k * dispatches) / melapsed,
+            "read_dispatch_p50_ms": _p(mtimes, 50),
+            "read_dispatch_p99_ms": _p(mtimes, 99),
+            "blocks_checked_all_rows": len(blocks),
+            "host_staging_ms_p50": _p(split["stage_ms"], 50),
+            "h2d_ms_p50": _p(split["h2d_ms"], 50),
+            "kernel_ms_p50": _p(split["kernel_ms"], 50),
+            "d2h_ms_p50": _p(split["d2h_ms"], 50),
+            # host ms a block in each engine call (the step_rounds figure
+            # holds _stage_multiround's, the upload and the launch)
+            "host_calls_ms_p50": {name: _p(v, 50) for name, v in calls.items()},
+            "h2d_bytes": int(k * n_groups * (5 * 4 + s * 8 + s * 5) + k + 16 * k),
+            "launches_per_block": launches,
+        },
+    }
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 8: the read plane through the engine, cuda == cpu
+# ----------------------------------------------------------------------
+
+
+def _read_op_script(torch, engine_mod, dev, mode, n=65_536, rounds=8):
+    """Lockstep card/CPU engines under reads: bulk and single stages,
+    echo quorums full and partial, cancels, a rebase and leader changes
+    with batches pending, elections, and (fused) in-program recycles of
+    rows with pending slots.  Returns what it counted."""
+    pair = Lockstep(engine_mod, dev, n, dense_ingest={"sparse": False, "fused": "auto"}[mode],
+                    device_ticks=True)
+    pair.enable_telem()
+    rng = np.random.default_rng(47)
+    leaders, term, last = set(), {}, {}
+    for cid in range(1, n + 1):
+        follower = cid % 8 == 0
+        pair.add_group(cid, node_ids=[1, 2, 3, 4, 5], self_id=1, election_timeout=1000,
+                       rand_timeout=int(4 + cid % 37) if follower else 2000)
+        if cid % 3 == 0:
+            pair.set_hier(cid, [1, 2, 3], 2)
+        term[cid] = last[cid] = 1
+        if not follower:
+            pair.set_leader(cid, term=1, term_start=1, last_index=1)
+            leaders.add(cid)
+    h = pair.h
+    next_cid = n + 1
+    seen = dict.fromkeys(("steps", "staged", "confirmed", "cancelled", "pending_max",
+                          "purged_by_transition", "recycled_pending", "won"), 0)
+    frac = 0.03 if mode == "sparse" else 1.0
+    pending = []  # (cid, slot) staged with one echo, left pending
+    for rnd in range(rounds):
+        lead = np.array(sorted(leaders), np.int64)
+        acking = lead[rng.random(lead.size) < frac]
+        for cid in acking.tolist():
+            last[cid] += 1
+        arows = np.array([h.groups[c].row for c in acking.tolist()], np.int64)
+        arels = np.array([last[c] - h.groups[c].base for c in acking.tolist()], np.int64)
+        pair.ack_block(np.concatenate([arows] * 3), np.repeat(np.arange(3), arows.size),
+                       np.concatenate([arels] * 3))
+        reads_round = mode == "fused" or rnd % 2 == 1
+        if reads_round:
+            cand = lead[rng.random(lead.size) < 0.3]
+            cand = cand[np.array([h.read_slots_free(c) for c in cand.tolist()]) > 0]
+            crow = np.array([h.groups[c].row for c in cand.tolist()], np.int64)
+            crel = np.array([max(0, last[c] - h.groups[c].base - 1) for c in cand.tolist()])
+            sc, sh = pair.stage_read_block(crow, crel, rng.integers(1, 10, cand.size))
+            check(np.array_equal(sc, sh), f"{mode} round {rnd}: read slots differ")
+            seen["staged"] += int(cand.size)
+            u = rng.random(cand.size)
+            full, one = u < 0.7, (u >= 0.7) & (u < 0.9)
+            erows = np.concatenate([crow[full], crow[full], crow[one]])
+            eslots = np.concatenate([sh[full], sh[full], sh[one]])
+            epeers = np.concatenate([np.full(int(full.sum()), 1), np.full(int(full.sum()), 3),
+                                     np.full(int(one.sum()), 4)])
+            pair.read_ack_block(erows, eslots, epeers)
+            pending += list(zip(cand[one].tolist(), sh[one].tolist()))[:200]
+            for cid in lead[:32].tolist():  # singles, echoed by one voter
+                if h.read_slots_free(cid):
+                    slot, slot_h = pair.stage_read(cid, count=2)
+                    check(slot == slot_h, f"{mode} round {rnd}: read slots differ")
+                    pair.read_ack(cid, 2, slot)
+        if rnd >= 2 and pending:  # cancels and late echoes of pending batches
+            for cid, slot in pending[:40]:
+                if cid in leaders:
+                    pair.cancel_read(cid, slot)
+                    seen["cancelled"] += 1
+            for cid, slot in pending[40:80]:
+                if cid in leaders:
+                    pair.read_ack(cid, 5, slot)
+            pending = pending[80:]
+        if rnd == 2:  # a rebase of leaders with batches pending
+            some = [c for c, _ in pending[:60] if c in leaders]
+            pair.sync_rows([h.groups[c].row for c in some])
+            for cid in some:
+                pair.rebase(cid)
+        if rnd == 3:  # leader changes with batches pending: the reads die
+            fallen = [c for c, _ in pending[:50] if c in leaders]
+            pair.sync_rows([h.groups[c].row for c in fallen])
+            seen["purged_by_transition"] += sum(
+                int(h.mirror.arrays["read_count"][h.groups[c].row].sum() > 0) for c in fallen)
+            for cid in fallen:
+                term[cid] += 1
+                pair.set_follower(cid, term=term[cid])
+                leaders.discard(cid)
+        if mode == "fused":
+            pair.begin_round()
+            old = sorted(leaders)[300 + rnd]
+            seen["recycled_pending"] += int(h.read_slots_free(old) < h.n_read_slots)
+            pair.stage_recycle(old, next_cid, term=3, term_start=1, last_index=1)
+            leaders.discard(old)
+            leaders.add(next_cid)
+            term[next_cid], last[next_cid] = 3, 1
+            next_cid += 1
+            sl = pair.stage_read(next_cid - 1, count=4)[0]
+            pair.read_ack(next_cid - 1, 2, sl)
+            pair.read_ack(next_cid - 1, 3, sl)
+            pair.begin_round()
+            ra, rb = pair.step_rounds(do_tick=True, pad_rounds_to=4)
+        else:
+            ra, rb = pair.step(do_tick=True)
+        tag = f"reads {mode} round {rnd}"
+        pair.compare(ra, rb, tag)
+        check(ra.reads == rb.reads, f"{tag}: read egress differs")
+        seen["confirmed"] += sum(c for *_, c in rb.reads)
+        sc_, sh_ = pair.c.telem_snapshot(), pair.h.telem_snapshot()
+        check(sh_ is not None and same_snapshot(sc_, sh_), f"{tag}: telemetry snapshots differ")
+        seen["pending_max"] = max(seen["pending_max"], sh_["read_slots"])
+        for name in pair.c.dev._fields:
+            check(torch.equal(getattr(pair.c.dev, name).cpu(), getattr(pair.h.dev, name)),
+                  f"{tag}: state field {name} differs")
+        seen["steps"] += 1
+        # host follow-ups: elections and wins
+        elect = [c for c in sorted(rb.elect) if c not in leaders][:300]
+        pair.sync_rows([h.groups[c].row for c in elect])
+        for cid in elect:
+            term[cid] += 1
+            pair.set_candidate(cid, term=term[cid])
+            for nid in (1, 2, 3):
+                pair.vote(cid, nid, True)
+        if rb.won:
+            pair.sync_rows([h.groups[c].row for c in rb.won])
+        for cid in sorted(rb.won):
+            pair.set_leader(cid, term=term[cid], term_start=last[cid] + 1,
+                            last_index=last[cid] + 1)
+            last[cid] += 1
+            leaders.add(cid)
+            seen["won"] += 1
+    check(seen["confirmed"] > 0 and seen["pending_max"] > 0 and seen["cancelled"] > 0
+          and seen["purged_by_transition"] > 0,
+          f"reads {mode}: the script exercised too little: {seen}")
+    if mode == "fused":
+        check(seen["recycled_pending"] > 0, f"reads {mode}: no recycle met a pending slot")
+    return seen
+
+
+def phase_read_ops(torch, engine_mod, dev):
+    out = {"phase": "read_op_script", "groups": 65_536, "peer_slots": 5}
+    for mode in ("sparse", "fused"):
+        t0 = time.perf_counter()
+        out[mode] = _read_op_script(torch, engine_mod, dev, mode)
+        out[f"{mode}_seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+
+
+def _registers(log):
+    """The most registers any instance of each source uses (nvcc's
+    ``-Xptxas -v`` report, kept by the build)."""
+    out, src = {}, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif "Used" in ln and "registers" in ln:
+            n = int(ln.split("Used")[1].split("registers")[0])
+            out[src] = max(out.get(src, 0), n)
+    return out
 
 
 def main() -> int:
@@ -1141,6 +1597,8 @@ def main() -> int:
         log = info.pop("log", "")
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "compiled": info.get("compiled"),
+              "source_seconds": info.get("source_seconds"),
+              "registers_max": _registers(log),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "spill" in ln and not ln.strip().startswith("0 bytes")][:6]})
         timings = phase_kernels(torch, ts, tk, dev)
@@ -1172,6 +1630,10 @@ def main() -> int:
         main_path("op_script_hier_telem",
                   lambda: phase_ops(torch, engine_mod, dev, hier_telem=True),
                   STEP_KERNELS + ("finish_hier", "telem_fold"))
+        main_path("rung4", lambda: phase_rung4(torch, engine_mod, tk, ts, dev),
+                  ("quorum_multiround", "read_plane"))
+        main_path("read_op_script", lambda: phase_read_ops(torch, engine_mod, dev),
+                  STEP_KERNELS + ("finish_hier", "telem_fold", "read_plane"))
         emit({"phase": "launches", "path": "all", **launches})
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")

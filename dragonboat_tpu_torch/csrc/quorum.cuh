@@ -3,8 +3,10 @@
 // Counterparts: dragonboat_tpu/ops/kernels.py — _kth_largest (:79),
 // _self_column (:124), vote_tally (:151), tick_step (:472), _finish_step
 // (:619, with the has_hier branch :640-650 as the HIER template flag),
-// quorum_step_impl (:520), quorum_step_dense_impl (:686), _apply_recycle
-// (:931) and quorum_multiround_impl (:1021).
+// read_confirm (:331) and _read_plane (:362) as read_plane (the READS
+// template flag of K1 and K3), quorum_step_impl (:520),
+// quorum_step_dense_impl (:686), _apply_recycle (:931) and
+// quorum_multiround_impl (:1021).
 //
 // Design.  Every update of the quorum engine is row-wise over groups: no
 // group reads another group's row.  So every kernel here runs one thread
@@ -25,7 +27,12 @@
 // (kernel_bytes).  The K-round kernel adds 4 B per slot per round of ack
 // input (160 B per row at K = 8, P = 5) and reads the state once for the
 // whole block.  store_row writes whole rows, more than the cells that
-// change: that is one reason a launch takes longer than its bound.
+// change: that is one reason a launch takes longer than its bound.  The
+// READS instances add the row's read slots (S x (8 + P) B, 52 B at S = 4,
+// P = 5) read and written once a launch, S x (8 + P) B of stage and echo
+// input a round (832 B a row at K = 16) and the (G, S) egress (8 B a
+// slot); the slots stay in registers, the echo bits packed one uint32 a
+// slot, across the K rounds.
 //
 // The same source compiles as host C++ with QS_EMULATE defined: launches
 // then run as loops over blocks and threads, which lets the arithmetic be
@@ -70,6 +77,7 @@ inline int atomicAdd(int* a, int v) {
   return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
 }
 inline int __clz(int x) { return __builtin_clz((unsigned)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // One block's threads meet here (QS_LAUNCH_COOP).
 struct qs_barrier {
   std::mutex mu;
@@ -144,6 +152,9 @@ constexpr int8_t VOTE_REJECT = 0;
 constexpr int8_t VOTE_GRANT = 1;
 constexpr int32_t INDEX_MIN = -2147483647 - 1;
 #define QS_MAX_GENERIC_P 32
+// The most pending-read slots a row may have (ops/kernels.py
+// MAX_KERNEL_READ_SLOTS): S is a launch argument, the slots registers.
+#define QS_MAX_READ_SLOTS 8
 constexpr int BLOCK = 256;
 
 // Launch flags, one bit each (ops/kernels.py passes the same bits).
@@ -153,6 +164,8 @@ constexpr int F_HAS_VOTES = 4;
 constexpr int F_HAS_CHURN = 8;
 constexpr int F_HAS_HIER = 16;
 constexpr int F_RESET_TELEM = 32;  // K3: a recycle zeroes telem_prev_committed
+constexpr int F_HAS_READS = 64;    // K1/K3: the READS instances (read plane)
+constexpr int F_RESET_READS = 128;  // K3: a recycle zeroes the row's read slots
 
 // The quorum-, hier- and telem-plane fields of QuorumState, as raw device
 // pointers.  torch.bool is one byte holding 0 or 1, the layout of C++
@@ -183,6 +196,24 @@ struct State {
   int32_t* telem_prev_committed;
   int32_t G;
   int32_t P;
+};
+
+// The read plane's device pointers, in the ctypes Structure's order
+// (ops/_build.py CReads): the state's (G, S) slots and (G, S, P) echo
+// bits, one dispatch's inputs — (G, S), (G, S) and (G, S, P), with a
+// leading round axis for K3 — and the (G, S) egress.  Only the slot
+// pointers and S are set for a K3 launch that resets slots on recycle
+// without running the plane.
+struct Reads {
+  int32_t* read_index;
+  int32_t* read_count;
+  bool* read_acks;
+  const int32_t* stage_idx;
+  const int32_t* stage_cnt;
+  const bool* echo;
+  int32_t* done_count;
+  int32_t* done_index;
+  int32_t S;
 };
 
 // (G,) bool outputs: StepOutputs.won / lost and TickFlags.
@@ -451,9 +482,12 @@ QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
 // and ``vote_new`` point at this row's P cells.  With SENTINEL the
 // untouched cells hold -1 (quorum_multiround's encoding) and ``touched``
 // is unused; without it ``touched`` says which cells carry an ack.
-template <int P, bool TRACK, bool VOTES, bool SENTINEL>
+// ``track`` (track_contact) is a launch argument, the same for every
+// thread, not a template flag: it gates one store, and as a template
+// flag it doubled K1's and K3's instances (see launch.cuh).
+template <int P, bool VOTES, bool SENTINEL>
 QS_HD void ingest_dense(Row<P>& r, const int32_t* ack, const bool* touched,
-                        const int8_t* vote_new) {
+                        const int8_t* vote_new, bool track) {
   const int p = width(r);
   bool contacted = false;
   QS_UNROLL
@@ -465,7 +499,7 @@ QS_HD void ingest_dense(Row<P>& r, const int32_t* ack, const bool* touched,
     r.active[i] = r.active[i] || t;
     contacted = contacted || t;
   }
-  if (TRACK && contacted && r.node_state != LEADER && r.live)
+  if (track && contacted && r.node_state != LEADER && r.live)
     r.election_tick = 0;
   r.last_index = imax(r.last_index, self_column(r));
   if (VOTES) {
@@ -499,6 +533,136 @@ QS_HD void recycle(Row<P>& r, int32_t term, int32_t start, int32_t last) {
   r.heartbeat_tick = 0;
 }
 
+// A row's pending-read slots in registers: the captured rel index, the
+// reads the batch carries (0 = free) and its echo bits, bit j = peer
+// slot j (P <= 32).  Slots at and above S stay zero.
+struct ReadRow {
+  int32_t index[QS_MAX_READ_SLOTS];
+  int32_t count[QS_MAX_READ_SLOTS];
+  uint32_t acks[QS_MAX_READ_SLOTS];
+};
+
+QS_HD uint32_t pack_bits(const bool* b, int p) {
+  uint32_t m = 0;
+  QS_UNROLL
+  for (int j = 0; j < p; ++j) m |= (uint32_t)b[j] << j;
+  return m;
+}
+
+QS_HD void clear_reads(ReadRow& rr) {
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
+    rr.index[i] = 0;
+    rr.count[i] = 0;
+    rr.acks[i] = 0;
+  }
+}
+
+template <int P>
+QS_HD void load_reads(ReadRow& rr, const Row<P>& r, const Reads& rd, int g) {
+  const int p = width(r);
+  clear_reads(rr);
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
+    if (i < rd.S) {
+      const size_t at = (size_t)g * rd.S + i;
+      rr.index[i] = rd.read_index[at];
+      rr.count[i] = rd.read_count[at];
+      rr.acks[i] = pack_bits(rd.read_acks + at * p, p);
+    }
+  }
+}
+
+template <int P>
+QS_HD void store_reads(const ReadRow& rr, const Row<P>& r, const Reads& rd,
+                       int g) {
+  const int p = width(r);
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
+    if (i < rd.S) {
+      const size_t at = (size_t)g * rd.S + i;
+      rd.read_index[at] = rr.index[i];
+      rd.read_count[at] = rr.count[i];
+      QS_UNROLL
+      for (int j = 0; j < p; ++j) rd.read_acks[at * p + j] = (rr.acks[i] >> j) & 1u;
+    }
+  }
+}
+
+// The egress accumulators of a launch: per slot the reads released
+// (summed over K3's rounds) and the largest index released at (-1 =
+// none), the reference's multiround carry.
+struct ReadDone {
+  int32_t count[QS_MAX_READ_SLOTS];
+  int32_t index[QS_MAX_READ_SLOTS];
+};
+
+QS_HD void init_done(ReadDone& d) {
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
+    d.count[i] = 0;
+    d.index[i] = -1;
+  }
+}
+
+QS_HD void store_done(const ReadDone& d, const Reads& rd, int g) {
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
+    if (i < rd.S) {
+      const size_t at = (size_t)g * rd.S + i;
+      rd.done_count[at] = d.count[i];
+      rd.done_index[at] = d.index[i];
+    }
+  }
+}
+
+// One round of the read plane on a row (kernels.py _read_plane with
+// read_confirm): stage, echo ingest, confirm, release.  ``stage_idx``,
+// ``stage_cnt`` and ``echo`` point at this round's S slots of the row
+// (echo: S x P bools).  A staged slot (stage_idx >= 0) takes the batch
+// and REPLACES its acks with this round's echoes; an unstaged slot ORs
+// them in.  A slot confirms where the row is a live leader, holds reads
+// (count > 0) and counts a quorum of voters among its acks and the
+// leader itself — the self bit only where 0 <= self_slot < P, as
+// jax.nn.one_hot's all-zero row for an index out of range.  A confirmed
+// slot frees (count 0, acks cleared) and keeps its index; what it
+// released adds to ``done``.  The plane reads node_state, live, voting,
+// self_slot and quorum, which the tail and the tick leave alone, so it
+// may run after either.
+template <int P>
+QS_HD void read_plane(const Row<P>& r, ReadRow& rr, int S,
+                      const int32_t* stage_idx, const int32_t* stage_cnt,
+                      const bool* echo, ReadDone& done) {
+  const int p = width(r);
+  uint32_t voting = 0;
+  QS_UNROLL
+  for (int j = 0; j < p; ++j) voting |= (uint32_t)r.voting[j] << j;
+  const uint32_t self_bit =
+      r.self_slot >= 0 && r.self_slot < p ? 1u << r.self_slot : 0u;
+  const bool is_leader = r.node_state == LEADER && r.live;
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
+    if (i < S) {
+      const uint32_t e = pack_bits(echo + (size_t)i * p, p);
+      const int32_t si = stage_idx[i];
+      if (si >= 0) {
+        rr.index[i] = si;
+        rr.count[i] = stage_cnt[i];
+        rr.acks[i] = e;
+      } else {
+        rr.acks[i] |= e;
+      }
+      const int32_t n = __popc((rr.acks[i] | self_bit) & voting);
+      if (is_leader && rr.count[i] > 0 && n >= r.quorum) {
+        done.count[i] = wadd(done.count[i], rr.count[i]);
+        done.index[i] = imax(done.index[i], rr.index[i]);
+        rr.count[i] = 0;
+        rr.acks[i] = 0;
+      }
+    }
+  }
+}
+
 QS_HD void store_flags(const Flags& f, int g, bool won, bool lost, bool e,
                        bool h, bool c) {
   f.won[g] = won;
@@ -508,23 +672,35 @@ QS_HD void store_flags(const Flags& f, int g, bool won, bool lost, bool e,
   f.checkq_demote[g] = c;
 }
 
-// K1: quorum_step_dense, in place.
-template <int P, bool DO_TICK, bool TRACK, bool VOTES, bool HIER>
+// K1: quorum_step_dense, in place; the READS instances run the read
+// plane after the tail and the tick, as the reference does.
+template <int P, bool DO_TICK, bool VOTES, bool HIER, bool READS>
 __global__ void dense_kernel(State s, const int32_t* ack_max,
                              const bool* touched, const int8_t* vote_new,
-                             Flags f) {
+                             bool track, Reads rd, Flags f) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= s.G) return;
   Row<P> r;
   load_row(r, s, g);
   if (HIER) load_hier(r, s, g);
   const size_t base = (size_t)g * width(r);
-  ingest_dense<P, TRACK, VOTES, false>(r, ack_max + base, touched + base,
-                                       VOTES ? vote_new + base : nullptr);
+  ingest_dense<P, VOTES, false>(r, ack_max + base, touched + base,
+                                VOTES ? vote_new + base : nullptr, track);
   bool won, lost, e, h, c;
   finish<P, DO_TICK, HIER>(r, s, g, won, lost, e, h, c);
   store_row<P, VOTES, false>(r, s, g);
   store_flags(f, g, won, lost, e, h, c);
+  if (READS) {
+    ReadRow rr;
+    ReadDone done;
+    load_reads(rr, r, rd, g);
+    init_done(done);
+    const size_t at = (size_t)g * rd.S;
+    read_plane(r, rr, rd.S, rd.stage_idx + at, rd.stage_cnt + at,
+               rd.echo + at * width(r), done);
+    store_reads(rr, r, rd, g);
+    store_done(done, rd, g);
+  }
 }
 
 // K2, first launch: the sparse events.  Acks scatter-max into match and
@@ -596,12 +772,18 @@ static __global__ void churn_map_kernel(const int32_t* churn_row, int n_rounds,
   if (row >= 0 && row < G) map[(size_t)(i / n_records) * G + row] = i % n_records;
 }
 
-// K3: quorum_multiround — K rounds of (recycle, dense ingest, tail,
-// masked tick) with the row held in registers; flags OR over the rounds.
-// A recycle keeps the hier geometry (a same-geometry tenant); with
-// reset_telem (has_telem or purge_telem) it also zeroes the row's
-// telem_prev_committed, which the fold after this launch then reads.
-template <int P, bool DO_TICK, bool TRACK, bool VOTES, bool CHURN, bool HIER>
+// K3: quorum_multiround — K rounds of (recycle, dense ingest, tail, the
+// read plane in the READS instances, masked tick) with the row held in
+// registers; flags OR over the rounds, the read egress sums counts and
+// takes the largest index.  A recycle keeps the hier geometry (a
+// same-geometry tenant); with reset_telem (has_telem or purge_telem) it
+// also zeroes the row's telem_prev_committed, which the fold after this
+// launch then reads.  It drops the old tenant's pending reads: in the
+// READS instances (whose reset_reads is always set) the slots in
+// registers, before that round's stage; elsewhere, with reset_reads
+// (purge_reads), the row's slots in memory once at the end, since no
+// round reads them.
+template <int P, bool DO_TICK, bool VOTES, bool CHURN, bool HIER, bool READS>
 __global__ void multiround_kernel(State s, const int32_t* ack,
                                   const int8_t* vote_new,
                                   const int32_t* churn_map,
@@ -609,13 +791,20 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
                                   const int32_t* churn_start,
                                   const int32_t* churn_last, int n_records,
                                   const bool* tick_mask, int n_rounds,
-                                  bool reset_telem, Flags f) {
+                                  bool track, bool reset_telem,
+                                  bool reset_reads, Reads rd, Flags f) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= s.G) return;
   Row<P> r;
   load_row(r, s, g);
   if (HIER) load_hier(r, s, g);
   const int p = width(r);
+  ReadRow rr;
+  ReadDone done;
+  if (READS) {
+    load_reads(rr, r, rd, g);
+    init_done(done);
+  }
   bool won = false, lost = false, e = false, h = false, c = false;
   bool recycled = false;
   for (int k = 0; k < n_rounds; ++k) {
@@ -625,15 +814,21 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
       if (rec >= 0) {
         const size_t at = (size_t)k * n_records + rec;
         recycle(r, churn_term[at], churn_start[at], churn_last[at]);
+        if (READS) clear_reads(rr);
         recycled = true;
       }
     }
-    ingest_dense<P, TRACK, VOTES, true>(r, ack + cells, nullptr,
-                                        VOTES ? vote_new + cells : nullptr);
+    ingest_dense<P, VOTES, true>(r, ack + cells, nullptr,
+                                 VOTES ? vote_new + cells : nullptr, track);
     bool w, l, e0, h0, c0;
     finish<P, false, HIER>(r, s, g, w, l, e0, h0, c0);
     won = won || w;
     lost = lost || l;
+    if (READS) {
+      const size_t at = ((size_t)k * s.G + g) * rd.S;
+      read_plane(r, rr, rd.S, rd.stage_idx + at, rd.stage_cnt + at,
+                 rd.echo + at * p, done);
+    }
     if (DO_TICK && tick_mask[k]) {
       tick(r, s, g, e0, h0, c0);
       e = e || e0;
@@ -644,6 +839,13 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
   store_row<P, VOTES, CHURN>(r, s, g);
   if (CHURN && reset_telem && recycled) s.telem_prev_committed[g] = 0;
   store_flags(f, g, won, lost, e, h, c);
+  if (READS) {
+    store_reads(rr, r, rd, g);
+    store_done(done, rd, g);
+  } else if (CHURN && reset_reads && recycled) {
+    clear_reads(rr);
+    store_reads(rr, r, rd, g);
+  }
 }
 
 // --- host-side dispatch from runtime flags to template instances --------

@@ -25,9 +25,10 @@ blog = get_logger("ops.build")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("quorum_step_dense.cu", "quorum_step.cu", "quorum_multiround.cu",
-           "telem_fold.cu")
-HEADERS = ("quorum.cuh",)
+SOURCES = ("quorum_step_dense.cu", "quorum_step_dense_reads.cu",
+           "quorum_step.cu", "quorum_multiround.cu",
+           "quorum_multiround_reads.cu", "telem_fold.cu")
+HEADERS = ("quorum.cuh", "launch.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +58,19 @@ class CState(ctypes.Structure):
     ] + [("G", ctypes.c_int32), ("P", ctypes.c_int32)]
 
 
+class CReads(ctypes.Structure):
+    """``qs::Reads`` in ``csrc/quorum.cuh``: the read plane's state slots,
+    its inputs, its (G, S) outputs and S."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "read_index", "read_count", "read_acks", "stage_idx", "stage_cnt",
+            "echo", "done_count", "done_index",
+        )
+    ] + [("S", ctypes.c_int32)]
+
+
 class CFlags(ctypes.Structure):
     """``qs::Flags`` in ``csrc/quorum.cuh``: the (G,) bool outputs."""
 
@@ -69,8 +83,9 @@ class CFlags(ctypes.Structure):
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    # qs_dense(state, ack_max, touched, vote_new, flags_out, flags, stream)
-    "qs_dense": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    # qs_dense(state, ack_max, touched, vote_new, reads, flags_out, flags,
+    #          stream)
+    "qs_dense": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
     # qs_sparse(state, ack_g, ack_p, ack_val, ack_valid, n_acks, vote_g,
     #           vote_p, vote_grant, vote_valid, n_votes, contacted,
     #           flags_out, flags, stream)
@@ -78,9 +93,9 @@ _SIGNATURES = {
                   _VP, _VP, _INT, _VP],
     # qs_multiround(state, ack, vote_new, churn_row, churn_term,
     #               churn_start, churn_last, n_records, tick_mask,
-    #               n_rounds, churn_map, flags_out, flags, stream)
+    #               n_rounds, churn_map, reads, flags_out, flags, stream)
     "qs_multiround": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT,
-                      _VP, _VP, _INT, _VP],
+                      _VP, _VP, _VP, _INT, _VP],
     # qs_telem(state, read_count, n_read_slots, kv_ent_index, n_kv_ents, k,
     #          out, cand, n_cand, flags, stream)
     "qs_telem": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP],
@@ -129,9 +144,9 @@ def build() -> str:
                  "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
+        outs, ends = _wait_all(procs, t0)
         logs, failed = [], []
-        for src, proc in zip(SOURCES, procs):
-            out, _ = proc.communicate()
+        for src, proc, out in zip(SOURCES, procs, outs):
             logs.append(f"== {src}\n{out}")
             if proc.returncode != 0:
                 failed.append(src)
@@ -149,10 +164,30 @@ def build() -> str:
     with open(lib + ".log", "w") as f:
         f.write(log)
     build_info.update(
-        path=lib, compiled=True, seconds=time.perf_counter() - t0, log=log
+        path=lib, compiled=True, seconds=time.perf_counter() - t0, log=log,
+        source_seconds=dict(zip(SOURCES, ends)),
     )
     blog.info("built %s in %.1f s", lib, build_info["seconds"])
     return lib
+
+
+def _wait_all(procs, t0):
+    """Wait for every compiler process; returns their outputs and the
+    seconds since ``t0`` at which each was seen to end.  One reader
+    thread a process drains its pipe, so none blocks on a full one."""
+    outs = [None] * len(procs)
+    ends = [None] * len(procs)
+
+    def drain(i):
+        outs[i], _ = procs[i].communicate()
+        ends[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=drain, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return outs, ends
 
 
 def bind(path: str) -> ctypes.CDLL:

@@ -22,14 +22,22 @@ The device boundary:
 * with the telemetry fold on, the fold's fixed-size aggregate block is
   copied the same way, under the same event; ``telem_snapshot`` turns
   the last harvested one into a dict;
+* a dispatch that ran the read plane copies its (2, G, S) read egress
+  (reads confirmed per slot, the index they were released at) the same
+  way; ``StepResult.reads`` names them by cluster id, slot and absolute
+  index;
 * ``device=None`` means CUDA; the engine raises when there is none.  The
   CPU runs the plain versions only when ``device="cpu"`` is asked for.
 
-The hier and telemetry planes sit behind one-way latches (``set_hier``,
-``enable_telem``), as in the reference: until a latch flips, every
-dispatch runs without the plane and the row syncs skip its fields.
-Planes of later slices (reads, devsm, observability, device profiling,
-warm-up compilation, ``sharding=``) raise :class:`NotImplementedError`.
+The read, hier and telemetry planes sit behind one-way latches (the
+first read ingress, ``set_hier``, ``enable_telem``), as in the
+reference: until a latch flips, every dispatch runs without the plane
+and the row syncs skip its fields.  ReadIndex batches ride pending-read
+slots (``stage_read``, ``read_ack``): staged reads force the dense step
+(K1) or ride the K-round block (K3), which confirm them in the dispatch
+that advances commits.  Planes of later slices (devsm, observability,
+device profiling, warm-up compilation, ``sharding=``) raise
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from .kernels import (
     quorum_multiround,
     quorum_step,
     quorum_step_dense,
+    read_block,
     telem_block,
 )
 from .state import (
@@ -108,12 +117,14 @@ class StepResult:
     """Egress of one dispatch, in absolute-index / cluster-id terms
     (counterpart: ``dragonboat_tpu/ops/engine.py`` ``StepResult``).
 
-    ``commit`` materializes lazily from the vectorized egress arrays.  The
-    read and devsm egress of the reference come with their slices."""
+    ``commit`` and ``reads`` materialize lazily from the vectorized egress
+    arrays.  The devsm egress of the reference comes with its slice."""
 
     __slots__ = (
         "won", "lost", "elect", "heartbeat", "demote",
         "_commit_cids", "_commit_abs", "_commit_dict",
+        "read_cids", "read_slots", "read_index_abs", "read_counts",
+        "_reads_list",
     )
 
     def __init__(self):
@@ -125,6 +136,14 @@ class StepResult:
         self.elect: List[int] = []
         self.heartbeat: List[int] = []
         self.demote: List[int] = []
+        # confirmed-read egress (None when the dispatch ran read-free):
+        # per confirmed pending-read slot, the cluster, the slot, the
+        # ABSOLUTE release index and the reads the batch carried
+        self.read_cids: Optional[np.ndarray] = None       # (n,) int64
+        self.read_slots: Optional[np.ndarray] = None      # (n,) int64
+        self.read_index_abs: Optional[np.ndarray] = None  # (n,) int64
+        self.read_counts: Optional[np.ndarray] = None     # (n,) int64
+        self._reads_list = None
 
     @property
     def commit(self) -> Dict[int, int]:
@@ -137,6 +156,20 @@ class StepResult:
                     zip(self._commit_cids.tolist(), self._commit_abs.tolist())
                 )
         return self._commit_dict
+
+    @property
+    def reads(self) -> List[Tuple[int, int, int, int]]:
+        """Confirmed reads as ``(cluster_id, slot, abs_index, count)``
+        tuples; built on first access."""
+        if self._reads_list is None:
+            if self.read_cids is None or not len(self.read_cids):
+                self._reads_list = []
+            else:
+                self._reads_list = list(zip(
+                    self.read_cids.tolist(), self.read_slots.tolist(),
+                    self.read_index_abs.tolist(), self.read_counts.tolist(),
+                ))
+        return self._reads_list
 
 
 class MultiRoundResult(StepResult):
@@ -158,38 +191,49 @@ class MultiRoundResult(StepResult):
 class _RoundBuf:
     """One closed ingest round awaiting the fused multi-round dispatch
     (counterpart: ``dragonboat_tpu/ops/engine.py`` ``_RoundBuf``, without
-    the read and devsm staging of later slices): epoch-filtered ack
-    arrays, first-wins-deduped votes, the round's leader-recycle records,
-    and optionally the precomputed flat (row·P + slot) cell vector."""
+    the devsm staging of a later slice): epoch-filtered ack arrays,
+    first-wins-deduped votes, the round's leader-recycle records,
+    optionally the precomputed flat (row·P + slot) cell vector, and the
+    round's staged ReadIndex batches and heartbeat echoes as flat arrays
+    (None = none)."""
 
-    __slots__ = ("rows", "slots", "rels", "votes", "churn", "cells")
+    __slots__ = ("rows", "slots", "rels", "votes", "churn", "cells", "reads",
+                 "racks")
 
-    def __init__(self, rows, slots, rels, votes, churn, cells=None):
+    def __init__(self, rows, slots, rels, votes, churn, cells=None,
+                 reads=None, racks=None):
         self.rows = rows
         self.slots = slots
         self.rels = rels
         self.votes = votes   # list[(row, slot, grant)]
         self.churn = churn   # list[(row, term, term_start_rel, last_rel)]
         self.cells = cells   # np (n,) int64 row*P+slot, or None
+        self.reads = reads   # (rows, slots, rels, counts) int32 arrays
+        self.racks = racks   # (rows, rslots, peers) int32 arrays
 
 
 class _Egress:
-    """One launch's watermark, flag block and telemetry aggregate (None
-    without the fold) on their way to the host.  On CUDA: pinned host
-    tensors filled by ``non_blocking`` copies enqueued on the launch's
-    stream, plus the event :meth:`wait` blocks on."""
+    """One launch's watermark, flag block, read egress block and telemetry
+    aggregate (the last two None without their plane) on their way to the
+    host.  On CUDA: pinned host tensors filled by ``non_blocking`` copies
+    enqueued on the launch's stream, plus the event :meth:`wait` blocks
+    on."""
 
-    __slots__ = ("committed", "flags", "telem", "event")
+    __slots__ = ("committed", "flags", "reads", "telem", "event")
 
     def __init__(self, out, device: torch.device):
         telem = None if out.telem is None else telem_block(out.telem)
+        reads = None if out.read_done_count is None else read_block(out)
         if device.type == "cuda":
             g = out.committed.shape[0]
             self.committed = torch.empty((g,), dtype=torch.int32, pin_memory=True)
             self.flags = torch.empty((5, g), dtype=torch.bool, pin_memory=True)
             self.committed.copy_(out.committed, non_blocking=True)
             self.flags.copy_(flag_block(out), non_blocking=True)
-            self.telem = None
+            self.reads = self.telem = None
+            if reads is not None:
+                self.reads = torch.empty(reads.shape, dtype=torch.int32, pin_memory=True)
+                self.reads.copy_(reads, non_blocking=True)
             if telem is not None:
                 self.telem = torch.empty(telem.shape, dtype=torch.int32, pin_memory=True)
                 self.telem.copy_(telem, non_blocking=True)
@@ -199,16 +243,19 @@ class _Egress:
             # the state's committed is updated in place by the next step
             self.committed = out.committed.clone()
             self.flags = flag_block(out)
+            self.reads = reads
             self.telem = telem
             self.event = None
 
-    def wait(self) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-        """(committed (G,) int32, flags (5, G) bool, the telemetry block
-        (TELEM_HEAD + 2k,) int32 or None) as numpy arrays."""
+    def wait(self):
+        """(committed (G,) int32, flags (5, G) bool, the read egress
+        (2, G, S) int32 or None, the telemetry block (TELEM_HEAD + 2k,)
+        int32 or None) as numpy arrays."""
         if self.event is not None:
             self.event.synchronize()
+        reads = None if self.reads is None else self.reads.numpy()
         telem = None if self.telem is None else self.telem.numpy()
-        return self.committed.numpy(), self.flags.numpy(), telem
+        return self.committed.numpy(), self.flags.numpy(), reads, telem
 
 
 class BatchedQuorumEngine:
@@ -303,6 +350,27 @@ class BatchedQuorumEngine:
         # in-flight pipelined dispatch: (_Egress, prev_committed, row_cid
         # snapshot, row_base snapshot, n_rounds)
         self._inflight = None
+        # --- device read plane staging ---------------------------------
+        # ReadIndex batches and heartbeat echoes of the CURRENT open
+        # round; epoch columns filter events staged before a transition,
+        # exactly like the ack/vote buffers
+        self._read_stages: List[Tuple[int, int, int, int, int]] = []
+        self._read_stage_blocks: List[Tuple[np.ndarray, ...]] = []
+        self._read_echoes: List[Tuple[int, int, int, int]] = []
+        self._read_echo_blocks: List[Tuple[np.ndarray, ...]] = []
+        # host slot bookkeeping: a slot is BUSY from stage until its
+        # staged echoes reach quorum (the device sees only echoes staged
+        # here, so the host predicts the confirmation without a readback)
+        # and is reusable only in a LATER round (_read_freed_round)
+        self._read_busy = np.zeros((n_groups, n_read_slots), bool)
+        self._read_echo_host = np.zeros((n_groups, n_read_slots, n_peers), bool)
+        self._read_next_slot = np.zeros((n_groups,), np.int32)
+        self._read_freed_round = np.full((n_groups, n_read_slots), -1, np.int64)
+        self._round_seq = 0
+        # LATCH: set on the first read-plane ingress (stage/echo/cancel),
+        # never reset.  Until then the read arrays are all-zero on both
+        # sides, the row syncs skip them and K3 skips their recycle reset.
+        self._read_plane_used = False
         # LATCH: set by the first enabling set_hier, never reset.  Until
         # then near/sub_quorum are all-zero on both sides, every dispatch
         # runs has_hier=False and the row syncs skip the hier fields.
@@ -328,12 +396,6 @@ class BatchedQuorumEngine:
     warmup_devsm = _later("warmup_devsm", "warm-up compilation")
     warm_plan = _later("warm_plan", "warm-up compilation")
     lower_variant = _later("lower_variant", "the device profiling plane")
-    stage_read = _later("stage_read", "the device read plane")
-    stage_read_block = _later("stage_read_block", "the device read plane")
-    read_ack = _later("read_ack", "the device read plane")
-    read_ack_block = _later("read_ack_block", "the device read plane")
-    cancel_read = _later("cancel_read", "the device read plane")
-    read_slots_free = _later("read_slots_free", "the device read plane")
     stage_kv_op = _later("stage_kv_op", "the device state machine")
     stage_kv_ops = _later("stage_kv_ops", "the device state machine")
     stage_kv_read = _later("stage_kv_read", "the device state machine")
@@ -485,6 +547,9 @@ class BatchedQuorumEngine:
         for nid, slot in slots.items():
             a["present"][row, slot] = True
             a["voting"][row, slot] = nid not in observers
+        if self._read_plane_used:  # else provably already clear
+            self.mirror.clear_reads(row)
+            self._reset_read_rows([row])
         if self._hier_used:  # else provably already clear
             self.mirror.clear_hier(row)
         self._dirty.add(row)
@@ -494,8 +559,14 @@ class BatchedQuorumEngine:
         """Invalidate queued acks/votes for a row on every state transition
         (and removal): events staged before the transition belong to the
         old term.  O(1): the row's staging epoch is bumped and stale-epoch
-        events are filtered in one vectorized pass at dispatch."""
+        events are filtered in one vectorized pass at dispatch.  Pending
+        READS die with the transition too (the scalar twin builds a fresh
+        ``ReadIndex``): the slot bookkeeping and the mirror's read fields
+        reset here, and staged read/echo events fall to the epoch filter."""
         self._row_epoch[row] += 1
+        self._reset_read_rows([row])
+        if self._read_plane_used:  # else provably already clear
+            self.mirror.clear_reads(row)
 
     def _drop_churn_records(self, row: int, drop_events: bool = False) -> None:
         """Strip every undispatched recycle record for ``row`` — from the
@@ -526,6 +597,21 @@ class BatchedQuorumEngine:
                             b.cells = b.cells[keep]
                 if b.votes:
                     b.votes = [v for v in b.votes if v[0] != row]
+                self._purge_block_reads(b, row)
+
+    @staticmethod
+    def _purge_block_reads(b, row: int) -> None:
+        """Drop ``row``'s staged read batches and echoes from one sealed
+        round block (reads are droppable by contract: the scalar path
+        drops them on a leader change and clients retry)."""
+        if b.reads is not None and b.reads[0].size:
+            keep = b.reads[0] != row
+            if not keep.all():
+                b.reads = tuple(a[keep] for a in b.reads)
+        if b.racks is not None and b.racks[0].size:
+            keep = b.racks[0] != row
+            if not keep.all():
+                b.racks = tuple(a[keep] for a in b.racks)
 
     def remove_group(self, cluster_id: int) -> None:
         gi = self.groups.pop(cluster_id)
@@ -659,6 +745,11 @@ class BatchedQuorumEngine:
             a[f][row] = max(0, int(a[f][row]) - shift)
         a["match"][row, :] = np.maximum(a["match"][row, :] - shift, 0)
         a["next"][row, :] = np.maximum(a["next"][row, :] - shift, 1)
+        if self._read_plane_used:
+            # pending-read watermarks shift with the base; clamping to the
+            # new floor only ever rewrites a release index UP, which
+            # ReadIndex permits
+            a["read_index"][row, :] = np.maximum(a["read_index"][row, :] - shift, 0)
         self._dirty.add(row)
 
     # ------------------------------------------------------------------
@@ -730,6 +821,245 @@ class BatchedQuorumEngine:
         )
 
     # ------------------------------------------------------------------
+    # device read plane: ReadIndex staging
+    # ------------------------------------------------------------------
+
+    def _free_read_slot(self, rows: np.ndarray) -> np.ndarray:
+        """Vectorized per-row free-slot pick (cursor + S-step scan); -1
+        where a row has no reusable slot.  A slot freed by a predicted
+        confirmation is reusable only in a LATER round: the device applies
+        a round's stage before its echoes, so a same-round restage would
+        overwrite the confirming batch before its release."""
+        s = self.n_read_slots
+        slot = np.full(rows.shape, -1, np.int32)
+        cur = self._read_next_slot[rows]
+        for k in range(s):
+            cand = (cur + k) % s
+            ok = (
+                (slot < 0)
+                & ~self._read_busy[rows, cand]
+                & (self._read_freed_round[rows, cand] < self._round_seq)
+            )
+            slot = np.where(ok, cand, slot)
+        return slot
+
+    def _predict_read_confirm(self, rows: np.ndarray, rslots: np.ndarray) -> None:
+        """Free the slots whose staged echoes reach quorum (self counted
+        through the one-hot column, observers masked out: the arithmetic
+        of ``kernels.read_confirm`` on the mirror's membership): the batch
+        provably confirms in its round."""
+        a = self.mirror.arrays
+        echo = self._read_echo_host[rows, rslots]
+        selfc = (
+            np.arange(self.n_peers, dtype=np.int32)[None, :]
+            == a["self_slot"][rows][:, None]
+        )
+        cnt = ((echo | selfc) & a["voting"][rows]).sum(axis=1)
+        conf = self._read_busy[rows, rslots] & (cnt >= a["quorum"][rows])
+        if conf.any():
+            self._read_busy[rows[conf], rslots[conf]] = False
+            self._read_freed_round[rows[conf], rslots[conf]] = self._round_seq
+
+    def _reset_read_rows(self, rows) -> None:
+        """Drop the rows' pending-read bookkeeping (transition purge); a
+        no-op until the read plane is used."""
+        if not self._read_plane_used:
+            return
+        self._read_busy[rows] = False
+        self._read_freed_round[rows] = -1
+        self._read_echo_host[rows] = False
+
+    def stage_read(
+        self, cluster_id: int, count: int = 1, index: Optional[int] = None
+    ) -> int:
+        """Stage a batch of ``count`` ReadIndex requests for the group and
+        return the pending-read SLOT it rides (the confirmed-read egress
+        names the slot back).  Scalar twin: ``ReadIndex.add_request``.
+        ``index`` (absolute) pins the captured watermark; by default it is
+        the engine's host view of the row's committed watermark, which may
+        trail an unharvested block and is still linearizable (commits
+        reach clients only through harvested egress).  Raises
+        ``RuntimeError`` when all S slots hold unconfirmed batches."""
+        if count < 1:
+            raise ValueError("stage_read count must be >= 1")
+        gi = self.groups[cluster_id]
+        row = gi.row
+        slot = int(self._free_read_slot(np.array([row], np.int64))[0])
+        if slot < 0:
+            raise RuntimeError(f"no free pending-read slot for group {cluster_id}")
+        if index is not None:
+            rel = self._rel(gi, index)
+        else:
+            self._refresh_committed_cache()
+            if row in self._dirty or row in self._churn_pending:
+                rel = int(self.mirror.arrays["committed"][row])
+            else:
+                rel = int(self._committed_cache[row])
+        self._read_plane_used = True
+        self._read_busy[row, slot] = True
+        self._read_next_slot[row] = (slot + 1) % self.n_read_slots
+        self._read_echo_host[row, slot, :] = False
+        self._read_stages.append((row, slot, rel, count, int(self._row_epoch[row])))
+        return slot
+
+    def stage_read_block(self, rows, rels, counts) -> np.ndarray:
+        """Vectorized bulk read staging: one batch per row (rows unique),
+        ``rels`` already rebased; returns the slot of each row.  Caller
+        contract as ``ack_block``'s: live rows, bounds validated here."""
+        rows = np.asarray(rows)
+        rels = np.asarray(rels)
+        counts = np.asarray(counts)
+        if not (rows.shape == rels.shape == counts.shape) or rows.ndim != 1:
+            raise ValueError("stage_read_block arrays must share a 1-D shape")
+        if rows.size == 0:
+            return np.zeros((0,), np.int32)
+        if rows.min() < 0 or rows.max() >= self.n_groups:
+            raise ValueError("stage_read_block row out of range")
+        if rels.min() < 0 or rels.max() >= REBASE_THRESHOLD:
+            raise ValueError("stage_read_block rel out of range")
+        if counts.min() < 1:
+            raise ValueError("stage_read_block counts must be >= 1")
+        if np.unique(rows).size != rows.size:
+            raise ValueError("stage_read_block rows must be unique")
+        rows64 = rows.astype(np.int64)
+        slot = self._free_read_slot(rows64)
+        if (slot < 0).any():
+            raise RuntimeError(
+                f"no free pending-read slot for {int((slot < 0).sum())} rows"
+            )
+        self._read_plane_used = True
+        self._read_busy[rows64, slot] = True
+        self._read_next_slot[rows64] = (slot + 1) % self.n_read_slots
+        self._read_echo_host[rows64, slot, :] = False
+        rows32 = rows.astype(np.int32)
+        self._read_stage_blocks.append(
+            (rows32, slot.astype(np.int32), rels.astype(np.int32),
+             counts.astype(np.int32), self._row_epoch[rows32].copy())
+        )
+        return slot
+
+    def read_ack(self, cluster_id: int, node_id: int, slot: int) -> None:
+        """Heartbeat echo of the group's pending-read ``slot`` from
+        ``node_id`` (scalar twin: the ``m.hint != 0`` branch of
+        ``handle_leader_heartbeat_resp`` feeding ``ReadIndex.confirm``)."""
+        gi = self.groups[cluster_id]
+        row = gi.row
+        if not 0 <= slot < self.n_read_slots:
+            raise ValueError(f"read slot {slot} out of range")
+        peer = gi.slots[node_id]
+        self._read_plane_used = True
+        self._read_echoes.append((row, slot, peer, int(self._row_epoch[row])))
+        self._read_echo_host[row, slot, peer] = True
+        self._predict_read_confirm(np.array([row], np.int64), np.array([slot], np.int64))
+
+    def read_ack_block(self, rows, rslots, peers) -> None:
+        """Vectorized bulk echo ingest in (row, read slot, peer slot)
+        space; duplicates are harmless (echo sets are idempotent)."""
+        rows = np.asarray(rows)
+        rslots = np.asarray(rslots)
+        peers = np.asarray(peers)
+        if not (rows.shape == rslots.shape == peers.shape) or rows.ndim != 1:
+            raise ValueError("read_ack_block arrays must share a 1-D shape")
+        if rows.size == 0:
+            return
+        if rows.min() < 0 or rows.max() >= self.n_groups:
+            raise ValueError("read_ack_block row out of range")
+        if rslots.min() < 0 or rslots.max() >= self.n_read_slots:
+            raise ValueError("read_ack_block read slot out of range")
+        if peers.min() < 0 or peers.max() >= self.n_peers:
+            raise ValueError("read_ack_block peer slot out of range")
+        rows32 = rows.astype(np.int32)
+        self._read_plane_used = True
+        self._read_echo_blocks.append(
+            (rows32, rslots.astype(np.int32), peers.astype(np.int32),
+             self._row_epoch[rows32].copy())
+        )
+        rows64 = rows.astype(np.int64)
+        rslots64 = rslots.astype(np.int64)
+        self._read_echo_host[rows64, rslots64, peers.astype(np.int64)] = True
+        self._predict_read_confirm(rows64, rslots64)
+
+    def cancel_read(self, cluster_id: int, slot: int) -> None:
+        """Withdraw a pending-read slot whose reads were released by
+        another path.  The slot frees on the host now and on the device at
+        its round: a zero-count stage overwrites the batch (count 0 means
+        free, and the confirm gates on it)."""
+        gi = self.groups[cluster_id]
+        row = gi.row
+        if not 0 <= slot < self.n_read_slots:
+            raise ValueError(f"read slot {slot} out of range")
+        self._read_plane_used = True
+        self._read_stages.append((row, slot, 0, 0, int(self._row_epoch[row])))
+        self._read_busy[row, slot] = False
+        self._read_freed_round[row, slot] = self._round_seq
+        self._read_echo_host[row, slot, :] = False
+
+    def read_slots_free(self, cluster_id: int) -> int:
+        """Pending-read slots of the group reusable RIGHT NOW (counting
+        the next-round rule): backpressure introspection."""
+        row = self.groups[cluster_id].row
+        free = ~self._read_busy[row] & (self._read_freed_round[row] < self._round_seq)
+        return int(free.sum())
+
+    def _gather_reads(self):
+        """The open round's read buffers as flat arrays with stale-epoch
+        events filtered; clears the buffers and advances the slot-reuse
+        round seq (one call per round close).  Returns ``(reads, racks)``,
+        each a tuple of int32 arrays or None."""
+        self._round_seq += 1
+        reads = racks = None
+        parts = []
+        if self._read_stages:
+            cols = np.array(self._read_stages, dtype=np.int64)
+            rows = cols[:, 0].astype(np.int32)
+            keep = cols[:, 4].astype(np.int32) == self._row_epoch[rows]
+            if keep.any():
+                parts.append(tuple(cols[keep, i].astype(np.int32) for i in range(4)))
+            self._read_stages = []
+        if self._read_stage_blocks:
+            for r, sl, v, c, ep in self._read_stage_blocks:
+                keep = ep == self._row_epoch[r]
+                if keep.all():
+                    parts.append((r, sl, v, c))
+                elif keep.any():
+                    parts.append((r[keep], sl[keep], v[keep], c[keep]))
+            self._read_stage_blocks = []
+        if parts:
+            reads = tuple(np.concatenate([q[i] for q in parts]) for i in range(4))
+        parts = []
+        if self._read_echoes:
+            cols = np.array(self._read_echoes, dtype=np.int64)
+            rows = cols[:, 0].astype(np.int32)
+            keep = cols[:, 3].astype(np.int32) == self._row_epoch[rows]
+            if keep.any():
+                parts.append(tuple(cols[keep, i].astype(np.int32) for i in range(3)))
+            self._read_echoes = []
+        if self._read_echo_blocks:
+            for r, sl, pe, ep in self._read_echo_blocks:
+                keep = ep == self._row_epoch[r]
+                if keep.all():
+                    parts.append((r, sl, pe))
+                elif keep.any():
+                    parts.append((r[keep], sl[keep], pe[keep]))
+            self._read_echo_blocks = []
+        if parts:
+            racks = tuple(np.concatenate([q[i] for q in parts]) for i in range(3))
+        return reads, racks
+
+    def _reads_pending(self) -> bool:
+        return bool(
+            self._read_stages or self._read_stage_blocks
+            or self._read_echoes or self._read_echo_blocks
+        )
+
+    def _pending_events(self) -> bool:
+        """Whether the open round holds anything to close."""
+        return bool(
+            self._acks or self._ack_blocks or self._votes or self._churn
+            or self._reads_pending()
+        )
+
+    # ------------------------------------------------------------------
     # multi-round fused staging
     # ------------------------------------------------------------------
 
@@ -747,7 +1077,10 @@ class BatchedQuorumEngine:
         else:
             votes = []
         rows, slots, rels = self._gather_acks()
-        self._round_blocks.append(_RoundBuf(rows, slots, rels, votes, self._churn))
+        reads, racks = self._gather_reads()
+        self._round_blocks.append(
+            _RoundBuf(rows, slots, rels, votes, self._churn, reads=reads, racks=racks)
+        )
         self._churn = []
         self._churn_rows = set()
 
@@ -773,7 +1106,7 @@ class BatchedQuorumEngine:
             raise ValueError("ack_block_rounds row out of range")
         if slots.size and (slots.min() < 0 or slots.max() >= self.n_peers):
             raise ValueError("ack_block_rounds slot out of range")
-        if self._acks or self._ack_blocks or self._votes or self._churn:
+        if self._pending_events():
             self.begin_round()
         rows32 = rows.astype(np.int32, copy=False)
         slots32 = slots.astype(np.int32, copy=False)
@@ -828,11 +1161,17 @@ class BatchedQuorumEngine:
         self._row_base[row] = 0
         # old-tenant events staged this round must not reach the new tenant
         self._purge_row_events(row)
+        # old-tenant READS die entirely, including batches sealed into
+        # closed pre-recycle rounds: a read confirmed there would egress
+        # after the recycle, attributed to the row's final tenant
+        for b in self._round_blocks:
+            self._purge_block_reads(b, row)
         # mirror coherence WITHOUT dirtying the row: the device applies the
         # identical reset in-program
         self.mirror.recycle_row(
             row, term, term_start, last_index,
-            clear_reads=False, clear_kv=False, clear_telem=self._telem_used,
+            clear_reads=self._read_plane_used, clear_kv=False,
+            clear_telem=self._telem_used,
         )
         self._committed_cache[row] = 0
         self._synced.discard(row)
@@ -857,7 +1196,7 @@ class BatchedQuorumEngine:
         harvests first.  ``pad_rounds_to`` pads the block with event-free,
         tick-masked-off rounds; ``tick_rounds`` sets how many rounds tick
         (default: every real round)."""
-        if self._acks or self._ack_blocks or self._votes or self._churn:
+        if self._pending_events():
             self.begin_round()
         if not self._round_blocks:
             return self._harvest_inflight()
@@ -900,10 +1239,12 @@ class BatchedQuorumEngine:
             return None
         egress, prev_committed, row_cid, row_base, n_rounds = self._inflight
         self._inflight = None
-        committed, flags, telem = egress.wait()
+        committed, flags, reads, telem = egress.wait()
         if telem is not None:
             self._stage_telem(telem, row_cid, n_rounds)
         res = MultiRoundResult(n_rounds)
+        if reads is not None:
+            self._translate_reads(res, reads, row_cid, row_base)
         committed = np.array(committed, dtype=np.int32)
         res.committed_rel = committed
         self._committed_cache = committed.copy()
@@ -939,6 +1280,24 @@ class BatchedQuorumEngine:
                 getattr(res, name).extend(cids[cids >= 0].tolist())
         return changed
 
+    @staticmethod
+    def _translate_reads(res, reads, row_cid, row_base) -> None:
+        """Vectorized confirmed-read egress translation: the (2, G, S)
+        count / index block becomes flat (cid, slot, abs index, count)
+        vectors (dead rows dropped; ``StepResult.reads`` builds the tuple
+        list on first access)."""
+        done_cnt, done_idx = reads[0], reads[1]
+        rows, slots = np.nonzero(done_cnt)
+        if not rows.size:
+            return
+        cids = row_cid[rows]
+        live = cids >= 0
+        rows, slots = rows[live], slots[live]
+        res.read_cids = cids[live]
+        res.read_slots = slots.astype(np.int64)
+        res.read_index_abs = row_base[rows] + done_idx[rows, slots]
+        res.read_counts = done_cnt[rows, slots].astype(np.int64)
+
     # ------------------------------------------------------------------
     # device boundary
     # ------------------------------------------------------------------
@@ -959,8 +1318,10 @@ class BatchedQuorumEngine:
 
     def _stage_multiround(self, blocks: List[_RoundBuf], tick_mask: np.ndarray):
         """Stack K closed rounds into host tensors: the (K,G,P) ack block
-        with the ``-1`` sentinel, (K,G,P) votes, (K,C) churn records and
-        the tick mask.  Returns (tensors, has_votes, has_churn)."""
+        with the ``-1`` sentinel, (K,G,P) votes, (K,C) churn records, the
+        tick mask and, where a round staged reads or echoes, the (K,G,S)
+        stage index (``-1`` = none) and count and the (K,G,S,P) echoes.
+        Returns (tensors, has_votes, has_churn, has_reads)."""
         k = len(blocks)
         g, p = self.n_groups, self.n_peers
         ack_t, ack_max = self._host((k, g, p), np.int32, fill=-1)
@@ -996,18 +1357,37 @@ class BatchedQuorumEngine:
         tick_t, tick_a = self._host((k,), np.bool_)
         tick_a[:] = tick_mask
         tensors = (ack_t, vote_t) + tuple(t for t, _ in churn) + (tick_t,)
-        return tensors, has_votes, has_churn
+        has_reads = any(b.reads is not None or b.racks is not None for b in blocks)
+        if has_reads:
+            s = self.n_read_slots
+            idx_t, stage_idx = self._host((k, g, s), np.int32, fill=-1)
+            cnt_t, stage_cnt = self._host((k, g, s), np.int32, fill=0)
+            echo_t, echo = self._host((k, g, s, p), np.bool_, fill=False)
+            for r, b in enumerate(blocks):
+                if b.reads is not None and b.reads[0].size:
+                    rr, sl, v, c = b.reads
+                    stage_idx[r, rr, sl] = v
+                    stage_cnt[r, rr, sl] = c
+                if b.racks is not None and b.racks[0].size:
+                    rr, sl, pe = b.racks
+                    echo[r, rr, sl, pe] = True
+            tensors += (idx_t, cnt_t, echo_t)
+        return tensors, has_votes, has_churn, has_reads
 
     def _upload(self, tensors) -> tuple:
         return tuple(self._to_device(t) for t in tensors)
 
-    def _launch_multiround(self, args, do_tick, has_votes, has_churn):
+    def _launch_multiround(self, args, do_tick, has_votes, has_churn, has_reads):
         return quorum_multiround(
             self._dev, *args,
             do_tick=do_tick,
             track_contact=self.device_ticks or do_tick,
             has_votes=has_votes,
             has_churn=has_churn,
+            has_reads=has_reads,
+            # a never-used read plane is all-zero: its recycle reset is
+            # skipped (the reference compiles it out)
+            purge_reads=self._read_plane_used and has_churn,
             has_hier=self._hier_used,
             has_telem=self._telem_used,
             purge_telem=self._telem_used and has_churn,
@@ -1025,9 +1405,9 @@ class BatchedQuorumEngine:
         The four parts are separate methods because ``chip_smoke.py``'s
         rung-5 drive overrides each of them to time it; keep their
         signatures when changing this path."""
-        tensors, has_votes, has_churn = self._stage_multiround(blocks, tick_mask)
+        tensors, *planes = self._stage_multiround(blocks, tick_mask)
         args = self._upload(tensors)
-        out = self._launch_multiround(args, do_tick, has_votes, has_churn)
+        out = self._launch_multiround(args, do_tick, *planes)
         return self._enqueue_egress(out)
 
     def _refresh_committed_cache(self) -> None:
@@ -1090,16 +1470,19 @@ class BatchedQuorumEngine:
             self.mirror.arrays[k][idx_np] = getattr(self._dev, k).index_select(0, idx).cpu().numpy()
         self._synced.update(todo)
 
+    _READ_KEYS = READ_PLANE_FIELDS
     _HIER_KEYS = HIER_PLANE_FIELDS
     _TELEM_KEYS = TELEM_PLANE_FIELDS
 
     def _sync_keys(self) -> List[str]:
         """Mirror fields the rare-path row syncs move between host and
-        device: the quorum plane, and the hier and telem fields once their
-        latches are up (before that both sides are all-zero by
-        construction).  The read and devsm planes are never used in the
-        port yet, so they stay at their reset values on both sides."""
-        skip = READ_PLANE_FIELDS + DEVSM_PLANE_FIELDS
+        device: the quorum plane, and the read, hier and telem fields once
+        their latches are up (before that both sides are all-zero by
+        construction).  The devsm plane is never used in the port yet, so
+        it stays at its reset values on both sides."""
+        skip = DEVSM_PLANE_FIELDS
+        if not self._read_plane_used:
+            skip += self._READ_KEYS
         if not self._hier_used:
             skip += self._HIER_KEYS
         if not self._telem_used:
@@ -1148,9 +1531,12 @@ class BatchedQuorumEngine:
         self._refresh_committed_cache()
         prev_committed = self._committed_cache
         ack_g, ack_p, ack_v = self._gather_acks()
+        reads, racks = self._gather_reads()
+        has_reads = reads is not None or racks is not None
         # dense mode collapses ANY number of acks/votes into (G,P)
-        # matrices — no cap, no chunk loop
-        if self.dense_ingest is True or (
+        # matrices — no cap, no chunk loop.  The read plane exists only on
+        # the dense kernel, so pending reads force it.
+        if has_reads or self.dense_ingest is True or (
             self.dense_ingest == "auto"
             and (
                 ack_g.size >= self._dense_threshold
@@ -1158,7 +1544,9 @@ class BatchedQuorumEngine:
                 or len(self._votes) > self.event_cap
             )
         ):
-            out = self._dispatch_dense(ack_g, ack_p, ack_v, self._votes, do_tick)
+            out = self._dispatch_dense(
+                ack_g, ack_p, ack_v, self._votes, do_tick, reads, racks
+            )
         else:
             pos = 0
             while (ack_g.size - pos) > self.event_cap or len(self._votes) > self.event_cap:
@@ -1178,9 +1566,11 @@ class BatchedQuorumEngine:
         self._voted_cells.clear()
         self._synced.clear()
         res = StepResult()
-        committed, flags, telem = self._enqueue_egress(out).wait()
+        committed, flags, done, telem = self._enqueue_egress(out).wait()
         if telem is not None:
             self._stage_telem(telem, self._row_cid.copy(), 1)
+        if done is not None:
+            self._translate_reads(res, done, self._row_cid, self._row_base)
         self._committed_cache = np.array(committed, dtype=np.int32)
         self._translate_egress(
             res, self._committed_cache, prev_committed, self._row_cid,
@@ -1249,12 +1639,18 @@ class BatchedQuorumEngine:
             has_hier=self._hier_used,
             has_telem=self._telem_used,
             telem_k=self.n_telem_topk,
+            # an occupancy hint for the fold only: this path carries no
+            # read events
+            has_reads=self._read_plane_used,
         )
         return out
 
-    def _dispatch_dense(self, ag, ap, av, votes, do_tick: bool):
+    def _dispatch_dense(self, ag, ap, av, votes, do_tick: bool, reads=None,
+                        racks=None):
         """Aggregate a round's events into (G,P) matrices and launch the
-        dense step."""
+        dense step; ``reads`` / ``racks`` are the round's gathered read
+        buffers (``_gather_reads``), which become the (G,S) stage index
+        and count and the (G,S,P) echoes of the read plane."""
         g, p = self.n_groups, self.n_peers
         max_t, ack_max = self._host((g, p), np.int32, fill=0)
         touch_t, touched = self._host((g, p), np.bool_, fill=False)
@@ -1269,12 +1665,28 @@ class BatchedQuorumEngine:
             vote_new[cols[0], cols[1]] = cols[2].astype(np.int8)
         else:
             vote_t, _ = self._host((1, 1), np.int8, fill=0)  # unread dummy
-        args = self._upload((max_t, touch_t, vote_t))
+        host = [max_t, touch_t, vote_t]
+        has_reads = reads is not None or racks is not None
+        if has_reads:
+            s = self.n_read_slots
+            idx_t, stage_idx = self._host((g, s), np.int32, fill=-1)
+            cnt_t, stage_cnt = self._host((g, s), np.int32, fill=0)
+            echo_t, echo = self._host((g, s, p), np.bool_, fill=False)
+            if reads is not None and reads[0].size:
+                rr, sl, v, c = reads
+                stage_idx[rr, sl] = v
+                stage_cnt[rr, sl] = c
+            if racks is not None and racks[0].size:
+                rr, sl, pe = racks
+                echo[rr, sl, pe] = True
+            host += [idx_t, cnt_t, echo_t]
+        args = self._upload(host)
         return quorum_step_dense(
             self._dev, *args,
             do_tick=do_tick,
             track_contact=self.device_ticks or do_tick,
             has_votes=bool(votes),
+            has_reads=has_reads,
             has_hier=self._hier_used,
             has_telem=self._telem_used,
             telem_k=self.n_telem_topk,

@@ -11,7 +11,12 @@ them (``donate_argnums=(0,)``): the returned ``StepOutputs.state`` is the
 caller's state, and ``StepOutputs.committed`` is its ``committed``
 tensor.  With ``has_telem`` a step's ``StepOutputs.telem`` is the
 :class:`TelemAggregate` of the fold run after it, whose fields are views
-of one fixed-size int32 block (:func:`telem_block`).
+of one fixed-size int32 block (:func:`telem_block`).  With ``has_reads``
+the dense and K-round steps run the device read plane (:func:`_read_plane`)
+and return its (G,S) ``read_done_count`` / ``read_done_index``; on the
+sparse step ``has_reads`` only tells the fold to count read slots, as in
+the reference (the engine forces the dense step whenever reads are
+staged).
 
 Routing is by the device the state lies on, and by nothing else:
 
@@ -22,7 +27,8 @@ Routing is by the device the state lies on, and by nothing else:
 
 Each wrapper counts its kernel launches (:func:`launch_counts`); a
 launch of a step kernel's ``has_hier`` instance also counts under
-``finish_hier``, the hier commit branch it carries.
+``finish_hier``, the hier commit branch it carries, and a launch of a
+``has_reads`` instance under ``read_plane``.
 
 Contract on event indexes: the sparse step drops events whose row or slot
 lies outside ``[0, G) x [0, P)``.  The JAX step routes invalid events to
@@ -61,10 +67,14 @@ _TELEM_BLOCK = 256
 # The widest peer axis the CUDA kernels take (QS_MAX_GENERIC_P in
 # csrc/quorum.cuh); the plain versions take any width.
 MAX_KERNEL_PEERS = 32
+# The most pending-read slots (S) the CUDA read plane takes
+# (QS_MAX_READ_SLOTS in csrc/quorum.cuh): a row's slots live in registers.
+MAX_KERNEL_READ_SLOTS = 8
 
 # Launch-flag bits of csrc/quorum.cuh.
 _F_DO_TICK, _F_TRACK_CONTACT, _F_HAS_VOTES, _F_HAS_CHURN = 1, 2, 4, 8
 _F_HAS_HIER, _F_RESET_TELEM = 16, 32
+_F_HAS_READS, _F_RESET_READS = 64, 128
 # ... and of csrc/telem_fold.cu.
 _F_COUNT_READS, _F_COUNT_KV = 1, 2
 
@@ -88,7 +98,7 @@ _SORT_NETWORKS = {
 }
 
 _LAUNCHES = {"quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
-             "telem_fold": 0, "finish_hier": 0}
+             "telem_fold": 0, "finish_hier": 0, "read_plane": 0}
 
 
 def launch_counts() -> dict:
@@ -123,32 +133,33 @@ class TelemAggregate(NamedTuple):
 
 
 class StepOutputs(NamedTuple):
-    """Outputs of one step (reference ``kernels.StepOutputs``).  The read
-    and devsm outputs belong to later slices and stay None."""
+    """Outputs of one step (reference ``kernels.StepOutputs``).  With
+    ``has_reads`` the read egress: per pending-read slot, the reads
+    confirmed this dispatch and the rel index they were released at (-1 =
+    none); a K-round block sums the counts and takes the largest index
+    over its rounds.  The devsm outputs belong to a later slice and stay
+    None."""
 
     state: QuorumState
     committed: torch.Tensor    # (G,) i32 rel — post-step commit watermark
     won: torch.Tensor          # (G,) bool — candidate reached vote quorum
     lost: torch.Tensor         # (G,) bool — candidate rejected by quorum
     flags: TickFlags
-    read_done_count: Optional[torch.Tensor] = None
-    read_done_index: Optional[torch.Tensor] = None
+    read_done_count: Optional[torch.Tensor] = None  # (G,S) i32
+    read_done_index: Optional[torch.Tensor] = None  # (G,S) i32 rel, -1 = none
     kv_read_val: Optional[torch.Tensor] = None
     kv_read_index: Optional[torch.Tensor] = None
     kv_applied: Optional[torch.Tensor] = None
     telem: Optional[TelemAggregate] = None
 
 
-def _off_slice(has_reads=False, has_kv=False):
+def _off_slice(has_kv=False):
     """Raise for a plane the port does not carry yet (ROADMAP.md queue A)."""
-    for on, what in (
-        (has_reads, "has_reads: the device read plane"),
-        (has_kv, "has_kv: the device state machine (devsm) plane"),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"{what} is ported in a later slice (ROADMAP.md queue A)"
-            )
+    if has_kv:
+        raise NotImplementedError(
+            "has_kv: the device state machine (devsm) plane is ported in a "
+            "later slice (ROADMAP.md queue A)"
+        )
 
 
 def _scalar(value: int, like: torch.Tensor) -> torch.Tensor:
@@ -297,6 +308,46 @@ def telem_fold_impl(st: QuorumState, k: int = TELEM_TOPK,
     )
 
 
+def read_confirm(read_acks, read_count, voting, self_slot, quorum, node_state,
+                 live) -> torch.Tensor:
+    """(G,S) bool: the pending-read slots whose echo quorum is reached
+    (twin: ``ReadIndex.confirm``): the leader counts itself through the
+    self column's one-hot (none where ``self_slot`` is outside [0, P)),
+    only voters' echoes count, and only live leaders confirm."""
+    p = voting.shape[1]
+    self_onehot = self_slot[:, None] == torch.arange(p, dtype=I32, device=voting.device)
+    acked = (read_acks | self_onehot[:, None, :]) & voting[:, None, :]
+    count = acked.sum(2, dtype=I32)
+    is_leader = (node_state == LEADER) & live
+    return (count >= quorum[:, None]) & (read_count > 0) & is_leader[:, None]
+
+
+def _read_plane(st: QuorumState, stage_idx, stage_cnt, ack):
+    """One round of the device read plane: stage, echo ingest, confirm,
+    release.  ``stage_idx`` (G,S) i32 is the new batch's index per slot
+    (-1 = no stage), ``stage_cnt`` its reads, ``ack`` (G,S,P) bool this
+    round's echoes.  Staging a slot REPLACES its acks with this round's
+    echoes; an unstaged slot ORs them in.  A confirmed slot frees (count
+    0, acks cleared) and keeps its index.  Returns ``(state, done_count,
+    done_index)``, the batches released this round (index -1 = none)."""
+    staged = stage_idx >= 0
+    read_index = torch.where(staged, stage_idx, st.read_index)
+    read_count = torch.where(staged, stage_cnt, st.read_count)
+    read_acks = torch.where(staged[:, :, None], ack, st.read_acks | ack)
+    confirmed = read_confirm(
+        read_acks, read_count, st.voting, st.self_slot, st.quorum,
+        st.node_state, st.live,
+    )
+    done_count = torch.where(confirmed, read_count, 0)
+    done_index = torch.where(confirmed, read_index, -1)
+    read_count = torch.where(confirmed, 0, read_count)
+    read_acks = read_acks & ~confirmed[:, :, None]
+    st = st._replace(
+        read_index=read_index, read_count=read_count, read_acks=read_acks
+    )
+    return st, done_count, done_index
+
+
 def _finish_step(st, match, next_, active, votes, election_tick, last_index,
                  do_tick: bool, has_hier: bool = False) -> StepOutputs:
     """Tally/commit/tick tail shared by the sparse and dense steps."""
@@ -344,9 +395,10 @@ def quorum_step_impl(
     has_kv: bool = False,
 ) -> StepOutputs:
     """One sparse round: scatter-max ack ingest, contact, first-wins votes,
-    then the tail, then the telemetry fold where ``has_telem`` says so.
-    Functional; see the module docstring on indexes."""
-    _off_slice(has_reads, has_kv)
+    then the tail, then the telemetry fold where ``has_telem`` says so
+    (``has_reads`` only makes it count read slots).  Functional; see the
+    module docstring on indexes."""
+    _off_slice(has_kv)
     g_total, p = st.match.shape
     ag, ap = ack_g.long(), ack_p.long()
     row_ok = ack_valid & (ag >= 0) & (ag < g_total)
@@ -406,8 +458,11 @@ def quorum_step_dense_impl(
     telem_k: int = TELEM_TOPK,
 ) -> StepOutputs:
     """Dense-ingestion twin of :func:`quorum_step_impl`: ``ack_max`` holds
-    0 in untouched cells, ``vote_new`` first-wins-deduped votes."""
-    _off_slice(has_reads, has_kv)
+    0 in untouched cells, ``vote_new`` first-wins-deduped votes.  With
+    ``has_reads`` the read plane runs after the tail (and the tick), on
+    ``read_stage_idx`` (G,S), ``read_stage_cnt`` (G,S) and ``read_ack``
+    (G,S,P)."""
+    _off_slice(has_kv)
     match = torch.maximum(st.match, torch.where(ack_touched, ack_max, 0))
     next_ = torch.maximum(st.next, match + 1)
     active = st.active | ack_touched
@@ -428,6 +483,13 @@ def quorum_step_dense_impl(
         st, match, next_, active, votes, election_tick, last_index, do_tick,
         has_hier=has_hier,
     )
+    if has_reads:
+        rst, done_cnt, done_idx = _read_plane(
+            out.state, read_stage_idx, read_stage_cnt, read_ack
+        )
+        out = out._replace(
+            state=rst, read_done_count=done_cnt, read_done_index=done_idx
+        )
     if has_telem:
         # the fold LAST: it describes the state this dispatch leaves
         tst, agg = telem_fold_impl(
@@ -438,13 +500,15 @@ def quorum_step_dense_impl(
 
 
 def _apply_recycle(st: QuorumState, row, term, start, last,
+                   reset_reads: bool = True,
                    reset_telem: bool = True) -> QuorumState:
     """Masked leader-recycle row reset (twin: ``remove_group`` +
     ``add_group`` + ``set_leader`` for a same-geometry tenant).  Rows
     outside [0, G) are padding and dropped.  Membership and the hier
-    geometry stay.  ``reset_telem`` zeroes the fresh tenant's stall
-    horizon; the read and devsm resets of the reference belong to later
-    slices (their planes stay at reset values in the port)."""
+    geometry stay.  ``reset_reads`` drops the old tenant's pending reads
+    and ``reset_telem`` zeroes the fresh tenant's stall horizon; the
+    devsm reset of the reference belongs to a later slice (that plane
+    stays at its reset values in the port)."""
     g, p = st.match.shape
     keep = (row >= 0) & (row < g)
     rows = row[keep].long()
@@ -459,6 +523,12 @@ def _apply_recycle(st: QuorumState, row, term, start, last,
         out[rows] = value
         return out
 
+    if reset_reads:
+        st = st._replace(
+            read_index=put(st.read_index, 0),
+            read_count=put(st.read_count, 0),
+            read_acks=put(st.read_acks, False),
+        )
     if reset_telem:
         st = st._replace(
             telem_prev_committed=put(st.telem_prev_committed, 0)
@@ -479,15 +549,12 @@ def _apply_recycle(st: QuorumState, row, term, start, last,
     )
 
 
-def _check_purge(has_churn, purge_reads, purge_kv):
-    for on, what in (
-        (purge_reads, "purge_reads: the read plane's recycle reset"),
-        (purge_kv, "purge_kv: the devsm plane's recycle reset"),
-    ):
-        if on and has_churn:
-            raise NotImplementedError(
-                f"{what} is ported in a later slice (ROADMAP.md queue A)"
-            )
+def _check_purge(has_churn, purge_kv):
+    if purge_kv and has_churn:
+        raise NotImplementedError(
+            "purge_kv: the devsm plane's recycle reset is ported in a later "
+            "slice (ROADMAP.md queue A)"
+        )
 
 
 def quorum_multiround_impl(
@@ -516,34 +583,50 @@ def quorum_multiround_impl(
 ) -> StepOutputs:
     """K engine rounds, including in-program churn: per round (1) that
     round's row recycles, (2) the dense ingest of its ``-1``-sentinel ack
-    block and votes, (3) tally/commit, then the tick where ``tick_mask``
-    says so.  Flags OR over the rounds; the final watermark is the egress.
-    With ``has_telem`` the fold runs ONCE, on the block's final state.
+    block and votes, (3) tally/commit, (4) with ``has_reads`` the read
+    plane on that round's (K,G,S) / (K,G,S,P) read inputs, then the tick
+    where ``tick_mask`` says so.  Flags OR over the rounds; the final
+    watermark is the egress; the read egress sums the counts and takes
+    the largest index over the rounds.  With ``has_telem`` the fold runs
+    ONCE, on the block's final state.
 
     The ``purge_*`` flags reset a plane on recycle; the port defaults
     them to False (the reference defaults them to True, a no-op on planes
-    never used).  ``purge_telem`` is carried; ``purge_reads`` and
-    ``purge_kv`` belong to later slices and raise if set with churn."""
-    _off_slice(has_reads, has_kv)
-    _check_purge(has_churn, purge_reads, purge_kv)
+    never used).  A recycle resets the read slots where ``has_reads`` or
+    ``purge_reads`` is set; ``purge_kv`` belongs to a later slice and
+    raises if set with churn."""
+    _off_slice(has_kv)
+    _check_purge(has_churn, purge_kv)
     g = st.match.shape[0]
-    zeros = torch.zeros((g,), dtype=BOOL, device=st.match.device)
+    dev = st.match.device
+    zeros = torch.zeros((g,), dtype=BOOL, device=dev)
     won = lost = elect = hb = demote = zeros
+    done_cnt = done_idx = None
+    if has_reads:
+        s = st.read_index.shape[1]
+        done_cnt = torch.zeros((g, s), dtype=I32, device=dev)
+        done_idx = torch.full((g, s), -1, dtype=I32, device=dev)
     for r in range(ack_max.shape[0]):
         if has_churn:
             st = _apply_recycle(
                 st, churn_row[r], churn_term[r], churn_start[r], churn_last[r],
+                reset_reads=has_reads or purge_reads,
                 reset_telem=has_telem or purge_telem,
             )
         am = ack_max[r]
+        reads_r = ((read_stage_idx[r], read_stage_cnt[r], read_ack[r])
+                   if has_reads else (None, None, None))
         out = quorum_step_dense_impl(
             st, am.clamp_min(0), am >= 0,
-            vote_new[r] if has_votes else None,
+            vote_new[r] if has_votes else None, *reads_r,
             do_tick=False, track_contact=track_contact, has_votes=has_votes,
-            has_hier=has_hier,
+            has_reads=has_reads, has_hier=has_hier,
         )
         st = out.state
         won, lost = won | out.won, lost | out.lost
+        if has_reads:
+            done_cnt = done_cnt + out.read_done_count
+            done_idx = torch.maximum(done_idx, out.read_done_index)
         if do_tick:
             tm = tick_mask[r]
             ticked, tflags = tick_step(st)
@@ -561,7 +644,8 @@ def quorum_multiround_impl(
             st, telem_k, count_reads=has_reads, count_kv=has_kv,
         )
     return StepOutputs(
-        st, st.committed, won, lost, TickFlags(elect, hb, demote), telem=telem
+        st, st.committed, won, lost, TickFlags(elect, hb, demote),
+        read_done_count=done_cnt, read_done_index=done_idx, telem=telem,
     )
 
 
@@ -585,10 +669,24 @@ def _flag_buffer(g: int, device) -> torch.Tensor:
     return torch.empty((5, g), dtype=BOOL, device=device)
 
 
-def _outputs(st: QuorumState, buf: torch.Tensor, telem=None) -> StepOutputs:
+def _outputs(st: QuorumState, buf: torch.Tensor, telem=None,
+             done=None) -> StepOutputs:
+    """``done`` is the (2, G, S) int32 read egress block, or None."""
     return StepOutputs(
         st, st.committed, buf[0], buf[1], TickFlags(buf[2], buf[3], buf[4]),
+        read_done_count=None if done is None else done[0],
+        read_done_index=None if done is None else done[1],
         telem=telem,
+    )
+
+
+def read_block(out: StepOutputs) -> torch.Tensor:
+    """The (2, G, S) int32 tensor whose rows are an entry point's
+    ``read_done_count`` and ``read_done_index``: the engine copies both to
+    the host as one block."""
+    c = out.read_done_count
+    return c.new_empty((0,)).set_(
+        c.untyped_storage(), c.storage_offset(), (2,) + tuple(c.shape)
     )
 
 
@@ -631,8 +729,8 @@ def _pack_telem(agg: TelemAggregate) -> TelemAggregate:
 
 def _write_back(st: QuorumState, out: StepOutputs) -> StepOutputs:
     """Copy a plain version's result into the caller's state tensors (the
-    in-place contract of the entry points) and pack its flags and its
-    telemetry aggregate."""
+    in-place contract of the entry points) and pack its flags, its read
+    egress and its telemetry aggregate."""
     for old, new in zip(st, out.state):
         if new is not old:
             old.copy_(new)
@@ -640,7 +738,10 @@ def _write_back(st: QuorumState, out: StepOutputs) -> StepOutputs:
     for i, f in enumerate((out.won, out.lost) + tuple(out.flags)):
         buf[i].copy_(f)
     telem = None if out.telem is None else _pack_telem(out.telem)
-    return _outputs(st, buf, telem)
+    done = None
+    if out.read_done_count is not None:
+        done = torch.stack([out.read_done_count, out.read_done_index])
+    return _outputs(st, buf, telem, done)
 
 
 _PEER_FIELDS = ("match", "next", "voting", "active", "votes", "near")
@@ -683,9 +784,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _run(name: str, dev: torch.device, call, has_hier: bool = False) -> None:
-    """Launch on the current stream and count it (``has_hier``: a step
-    kernel's HIER instance, counted under ``finish_hier`` too)."""
+def _run(name: str, dev: torch.device, call, also=()) -> None:
+    """Launch on the current stream and count it under ``name`` and under
+    each of ``also`` (``finish_hier`` for a step kernel's HIER instance,
+    ``read_plane`` for its READS instance)."""
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -695,12 +797,17 @@ def _run(name: str, dev: torch.device, call, has_hier: bool = False) -> None:
             f"{name} kernel launch failed: {lib.qs_error_string(rc).decode()}"
         )
     _LAUNCHES[name] += 1
-    if has_hier:
-        _LAUNCHES["finish_hier"] += 1
+    for other in also:
+        _LAUNCHES[other] += 1
+
+
+def _also(has_hier=False, has_reads=False) -> tuple:
+    return (("finish_hier",) if has_hier else ()) + (
+        ("read_plane",) if has_reads else ())
 
 
 def _bits(do_tick, track_contact, has_votes, has_churn=False, has_hier=False,
-          reset_telem=False) -> int:
+          reset_telem=False, has_reads=False, reset_reads=False) -> int:
     return (
         (_F_DO_TICK if do_tick else 0)
         | (_F_TRACK_CONTACT if track_contact else 0)
@@ -708,7 +815,41 @@ def _bits(do_tick, track_contact, has_votes, has_churn=False, has_hier=False,
         | (_F_HAS_CHURN if has_churn else 0)
         | (_F_HAS_HIER if has_hier else 0)
         | (_F_RESET_TELEM if reset_telem else 0)
+        | (_F_HAS_READS if has_reads else 0)
+        | (_F_RESET_READS if reset_reads else 0)
     )
+
+
+def _creads(st: QuorumState, dev, inputs, k: Optional[int]):
+    """The ``qs::Reads`` block of a read-plane launch: the state's read
+    slots, and, when ``inputs`` (stage_idx, stage_cnt, echo) are given,
+    those inputs ((G,S), (G,S), (G,S,P), with a leading K axis when ``k``
+    is given) and a fresh (2, G, S) int32 egress block.  Returns the
+    ctypes struct and the egress block (None without inputs)."""
+    g, p = st.match.shape
+    s = st.read_index.shape[1]
+    if not 1 <= s <= MAX_KERNEL_READ_SLOTS:
+        raise ValueError(
+            f"{s} read slots: the CUDA read plane takes 1..{MAX_KERNEL_READ_SLOTS}"
+        )
+    _check(st.read_index, "read_index", (g, s), I32)
+    _check(st.read_count, "read_count", (g, s), I32)
+    _check(st.read_acks, "read_acks", (g, s, p), BOOL)
+    cr = _build.CReads(
+        read_index=_ptr(st.read_index), read_count=_ptr(st.read_count),
+        read_acks=_ptr(st.read_acks), S=s,
+    )
+    if inputs is None:
+        return cr, None
+    lead = () if k is None else (k,)
+    stage_idx, stage_cnt, echo = inputs
+    _check(stage_idx, "read_stage_idx", lead + (g, s), I32)
+    _check(stage_cnt, "read_stage_cnt", lead + (g, s), I32)
+    _check(echo, "read_ack", lead + (g, s, p), BOOL)
+    done = torch.empty((2, g, s), dtype=I32, device=dev)
+    cr.stage_idx, cr.stage_cnt, cr.echo = _ptr(stage_idx), _ptr(stage_cnt), _ptr(echo)
+    cr.done_count, cr.done_index = _ptr(done[0]), _ptr(done[1])
+    return cr, done
 
 
 def telem_fold(
@@ -749,10 +890,10 @@ def _telem_launch(st, dev, k, count_reads, count_kv) -> TelemAggregate:
     return _telem_view(block, k)
 
 
-def _with_telem(st, dev, out, has_telem, telem_k) -> StepOutputs:
+def _with_telem(st, dev, out, has_telem, telem_k, count_reads) -> StepOutputs:
     if not has_telem:
         return out
-    return out._replace(telem=_telem_launch(st, dev, telem_k, False, False))
+    return out._replace(telem=_telem_launch(st, dev, telem_k, count_reads, False))
 
 
 def quorum_step(
@@ -769,10 +910,10 @@ def quorum_step(
     has_kv: bool = False,
 ) -> StepOutputs:
     """ONE sparse round over K padded events, in place (K2 on CUDA:
-    ``csrc/quorum_step.cu``, then the fold with ``has_telem``).
-    ``has_votes=False`` leaves the vote arguments unread (they may be
-    dummies)."""
-    _off_slice(has_reads, has_kv)
+    ``csrc/quorum_step.cu``, then the fold with ``has_telem``, counting
+    read slots with ``has_reads``).  ``has_votes=False`` leaves the vote
+    arguments unread (they may be dummies)."""
+    _off_slice(has_kv)
     votes_in = (vote_g, vote_p, vote_grant, vote_valid) if has_votes else ()
     dev = _device_of(st, ack_g, ack_p, ack_val, ack_valid, *votes_in)
     if dev.type == "cpu":
@@ -781,13 +922,14 @@ def quorum_step(
             vote_g, vote_p, vote_grant, vote_valid,
             do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
             has_hier=has_hier, has_telem=has_telem, telem_k=telem_k,
+            has_reads=has_reads,
         ))
     out = _sparse_launch(
         st, dev, (ack_g, ack_p, ack_val, ack_valid),
         (vote_g, vote_p, vote_grant, vote_valid), do_tick, track_contact,
         has_votes, has_hier,
     )
-    return _with_telem(st, dev, out, has_telem, telem_k)
+    return _with_telem(st, dev, out, has_telem, telem_k, has_reads)
 
 
 def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
@@ -817,7 +959,7 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
         _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
         _ptr(vote_valid), n_votes, _ptr(contacted), ctypes.byref(cfl),
         _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
-    ), has_hier)
+    ), _also(has_hier))
     return _outputs(st, buf)
 
 
@@ -836,25 +978,31 @@ def quorum_step_dense(
     telem_k: int = TELEM_TOPK,
 ) -> StepOutputs:
     """ONE dense round, in place (K1 on CUDA: ``csrc/quorum_step_dense.cu``,
-    then the fold with ``has_telem``).  ``has_votes=False`` leaves
-    ``vote_new`` unread."""
-    _off_slice(has_reads, has_kv)
-    dev = _device_of(st, ack_max, ack_touched, vote_new if has_votes else None)
+    its READS instances with ``has_reads``, then the fold with
+    ``has_telem``).  ``has_votes=False`` leaves ``vote_new`` unread, and
+    ``has_reads=False`` the read inputs."""
+    _off_slice(has_kv)
+    reads_in = (read_stage_idx, read_stage_cnt, read_ack) if has_reads else ()
+    dev = _device_of(st, ack_max, ack_touched, vote_new if has_votes else None,
+                     *reads_in)
     if dev.type == "cpu":
         return _write_back(st, quorum_step_dense_impl(
-            st, ack_max, ack_touched, vote_new,
+            st, ack_max, ack_touched, vote_new, *reads_in,
             do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
-            has_hier=has_hier, has_telem=has_telem, telem_k=telem_k,
+            has_reads=has_reads, has_hier=has_hier, has_telem=has_telem,
+            telem_k=telem_k,
         ))
     out = _dense_launch(
         st, dev, ack_max, ack_touched, vote_new, do_tick, track_contact,
-        has_votes, has_hier,
+        has_votes, has_hier, reads=reads_in or None,
     )
-    return _with_telem(st, dev, out, has_telem, telem_k)
+    return _with_telem(st, dev, out, has_telem, telem_k, has_reads)
 
 
 def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
-                  track_contact, has_votes, has_hier=False):
+                  track_contact, has_votes, has_hier=False, reads=None):
+    """``reads``: the (stage_idx, stage_cnt, echo) inputs of the READS
+    instance, or None."""
     cst = _cstate(st)
     g, p = st.match.shape
     _check(ack_max, "ack_max", (g, p), I32)
@@ -863,14 +1011,18 @@ def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
         _check(vote_new, "vote_new", (g, p), I8)
     else:
         vote_new = None
+    cr = done = None
+    if reads is not None:
+        cr, done = _creads(st, dev, reads, None)
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
     _run("quorum_step_dense", dev, lambda lib, stream: lib.qs_dense(
         ctypes.byref(cst), _ptr(ack_max), _ptr(ack_touched), _ptr(vote_new),
-        ctypes.byref(cfl),
-        _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
-    ), has_hier)
-    return _outputs(st, buf)
+        None if cr is None else ctypes.byref(cr), ctypes.byref(cfl),
+        _bits(do_tick, track_contact, has_votes, has_hier=has_hier,
+              has_reads=cr is not None), stream,
+    ), _also(has_hier, cr is not None))
+    return _outputs(st, buf, done=done)
 
 
 def quorum_multiround(
@@ -893,37 +1045,44 @@ def quorum_multiround(
     telem_k: int = TELEM_TOPK,
 ) -> StepOutputs:
     """K rounds with in-program churn in ONE launch, in place (K3 on CUDA:
-    ``csrc/quorum_multiround.cu``, then the fold once with ``has_telem``).
-    Arguments of disabled features (votes without ``has_votes``, churn
-    records without ``has_churn``, ``tick_mask`` without ``do_tick``) are
-    unread."""
-    _off_slice(has_reads, has_kv)
-    _check_purge(has_churn, purge_reads, purge_kv)
+    ``csrc/quorum_multiround.cu``, its READS instances with ``has_reads``
+    from ``csrc/quorum_multiround_reads.cu``, then the fold once with
+    ``has_telem``).  Arguments of disabled features (votes without
+    ``has_votes``, churn records without ``has_churn``, ``tick_mask``
+    without ``do_tick``, read inputs without ``has_reads``) are unread."""
+    _off_slice(has_kv)
+    _check_purge(has_churn, purge_kv)
     churn_in = (churn_row, churn_term, churn_start, churn_last) if has_churn else ()
+    reads_in = (read_stage_idx, read_stage_cnt, read_ack) if has_reads else ()
     dev = _device_of(
         st, ack_max, vote_new if has_votes else None, *churn_in,
-        tick_mask if do_tick else None,
+        tick_mask if do_tick else None, *reads_in,
     )
     if dev.type == "cpu":
         return _write_back(st, quorum_multiround_impl(
             st, ack_max, vote_new, churn_row, churn_term, churn_start,
-            churn_last, tick_mask, do_tick=do_tick,
+            churn_last, tick_mask, *reads_in, do_tick=do_tick,
             track_contact=track_contact, has_votes=has_votes,
-            has_churn=has_churn, has_hier=has_hier, has_telem=has_telem,
-            purge_telem=purge_telem, telem_k=telem_k,
+            has_churn=has_churn, has_reads=has_reads, purge_reads=purge_reads,
+            has_hier=has_hier, has_telem=has_telem, purge_telem=purge_telem,
+            telem_k=telem_k,
         ))
     out = _multiround_launch(
         st, dev, ack_max, vote_new,
         (churn_row, churn_term, churn_start, churn_last), tick_mask,
         do_tick, track_contact, has_votes, has_churn, has_hier,
-        reset_telem=has_telem or purge_telem,
+        reset_telem=has_telem or purge_telem, reads=reads_in or None,
+        reset_reads=has_reads or purge_reads,
     )
-    return _with_telem(st, dev, out, has_telem, telem_k)
+    return _with_telem(st, dev, out, has_telem, telem_k, has_reads)
 
 
 def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
                        track_contact, has_votes, has_churn, has_hier=False,
-                       reset_telem=False):
+                       reset_telem=False, reads=None, reset_reads=False):
+    """``reads``: the (K,G,S), (K,G,S), (K,G,S,P) inputs of the READS
+    instance, or None.  ``reset_reads`` (with churn) zeroes a recycled
+    row's read slots."""
     churn_row, churn_term, churn_start, churn_last = churn
     cst = _cstate(st)
     g, p = st.match.shape
@@ -947,13 +1106,19 @@ def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
         _check(tick_mask, "tick_mask", (k,), BOOL)
     else:
         tick_mask = None
+    reset_reads = reset_reads and has_churn
+    cr = done = None
+    if reads is not None or reset_reads:
+        cr, done = _creads(st, dev, reads, k)
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
     bits = _bits(do_tick, track_contact, has_votes, has_churn, has_hier,
-                 reset_telem and has_churn)
+                 reset_telem and has_churn, reads is not None, reset_reads)
     _run("quorum_multiround", dev, lambda lib, stream: lib.qs_multiround(
         ctypes.byref(cst), _ptr(ack_max), _ptr(vote_new), _ptr(churn_row),
         _ptr(churn_term), _ptr(churn_start), _ptr(churn_last), n_records,
-        _ptr(tick_mask), k, _ptr(churn_map), ctypes.byref(cfl), bits, stream,
-    ), has_hier)
-    return _outputs(st, buf)
+        _ptr(tick_mask), k, _ptr(churn_map),
+        None if cr is None else ctypes.byref(cr), ctypes.byref(cfl), bits,
+        stream,
+    ), _also(has_hier, reads is not None))
+    return _outputs(st, buf, done=done)

@@ -9,7 +9,7 @@ builds the sources that way with the host C++ compiler, binds the library
 with the same ctypes declarations the CUDA build uses, and drives it
 through the port's own launch functions on CPU tensors, so the struct
 layouts, pointer passing, flag bits and template dispatch (the HIER
-instances included) are exercised along with the row functions.  The
+and READS instances included) are exercised along with the row functions.  The
 CUDA build itself is held against the plain versions on the card by
 ``chip_smoke.py``.
 """
@@ -61,11 +61,11 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def launch(emulated, monkeypatch):
-    def run(name, dev, call, has_hier=False):
+    def run(name, dev, call, also=()):
         rc = call(emulated, None)
         assert rc == 0
-        tk._LAUNCHES[name] += 1
-        tk._LAUNCHES["finish_hier"] += has_hier
+        for counter in (name,) + tuple(also):
+            tk._LAUNCHES[counter] += 1
     monkeypatch.setattr(tk, "_run", run)
     tk.reset_launch_counts()
 
@@ -325,3 +325,132 @@ def test_source_hash_keys_the_library_on_every_source(monkeypatch, tmp_path):
         edited = _build.source_hash()
         assert edited != base, name
         base = edited
+
+
+def _read_block(seed, g, p, s, k):
+    """A state with pending read slots (some rows out of range on the
+    self slot, dead, or not leaders) and K rounds of stage and echo
+    input; round 0 stages every slot of row 0 and echoes it to quorum in
+    rounds 0 and 2, with a restage in round 2, so that slot confirms
+    twice in the block."""
+    rng = np.random.default_rng(seed)
+    f = _fields(seed, g, p)
+    f["read_index"] = rng.integers(0, 12, (g, s)).astype(np.int32)
+    f["read_count"] = rng.choice([0, 0, 1, 2, 5], (g, s)).astype(np.int32)
+    f["read_acks"] = rng.random((g, s, p)) < 0.3
+    f["self_slot"][1::9] = -1
+    idx = np.where(rng.random((k, g, s)) < 0.35,
+                   rng.integers(0, 12, (k, g, s)), -1).astype(np.int32)
+    cnt = rng.choice([0, 1, 3, 9], (k, g, s)).astype(np.int32)
+    echo = rng.random((k, g, s, p)) < 0.35
+    f["node_state"][0], f["live"][0], f["self_slot"][0] = 2, True, 0
+    f["voting"][0] = True
+    f["quorum"][0] = p // 2 + 1
+    idx[:, 0, 0], cnt[:, 0, 0], echo[:, 0, 0] = -1, 0, False
+    for r, at in ((0, 4), (2, 7))[:k // 2 + 1]:
+        idx[r, 0, 0], cnt[r, 0, 0] = at, 9
+        echo[r, 0, 0] = True
+    return f, tuple(torch.from_numpy(a) for a in (idx, cnt, echo))
+
+
+@pytest.mark.parametrize("s", [4, 8])
+@pytest.mark.parametrize("p", [3, 5, 12])
+def test_emulated_reads_dense_kernel_matches_plain(launch, p, s):
+    """K1's READS instances (with ticks, votes and the hier rule both
+    ways) against the plain dense step with has_reads."""
+    for i, (tick, votes, hier) in enumerate(itertools.product([False, True], repeat=3)):
+        seed = 700 * p + 10 * s + i
+        f, (idx, cnt, echo) = _read_block(seed, G, p, s, 1)
+        f = _hier_telem(f, np.random.default_rng(seed))
+        rng = np.random.default_rng(seed + 1)
+        touched = torch.from_numpy(rng.random((G, p)) < 0.4)
+        ack = torch.where(touched, torch.from_numpy(rng.integers(0, 25, (G, p)).astype(np.int32)), 0)
+        vote_new = torch.from_numpy(rng.choice([-1, -1, 0, 1], (G, p)).astype(np.int8))
+        reads = (idx[0], cnt[0], echo[0])
+        kout = tk._dense_launch(_state(f), CPU, ack, touched, vote_new, tick, True,
+                                votes, hier, reads=reads)
+        pout = tk.quorum_step_dense_impl(
+            _state(f), ack, touched, vote_new, *reads, do_tick=tick,
+            has_votes=votes, has_hier=hier, has_reads=True,
+        )
+        _assert_same(kout, pout, (p, s, tick, votes, hier))
+        for name in ("read_done_count", "read_done_index"):
+            assert torch.equal(getattr(kout, name), getattr(pout, name)), name
+        assert pout.read_done_count.sum() > 0
+    counts = tk.launch_counts()
+    assert counts["read_plane"] == counts["quorum_step_dense"] == 8
+
+
+@pytest.mark.parametrize("s", [4, 8])
+@pytest.mark.parametrize("p", [3, 5, 12])
+def test_emulated_reads_multiround_kernel_matches_plain(launch, p, s):
+    """K3's READS instances against the plain block: recycles mid-block
+    of rows with pending slots (row 0 among them, between its two
+    confirmations), ticks, votes, the hier rule, and a slot confirming
+    twice in one block (count summed, index the larger); then the
+    purge-only launch, which runs no plane but clears recycled rows."""
+    k, c = 4, 12
+    for i, (tick, votes, hier, churn) in enumerate(
+        itertools.product([False, True], repeat=4)
+    ):
+        seed = 800 * p + 10 * s + i
+        f, reads = _read_block(seed, G, p, s, k)
+        f = _hier_telem(f, np.random.default_rng(seed))
+        rng = np.random.default_rng(seed + 1)
+        ack = np.where(rng.random((k, G, p)) < 0.4,
+                       rng.integers(0, 25, (k, G, p)), -1).astype(np.int32)
+        vote_new = rng.choice([-1, -1, 0, 1], (k, G, p)).astype(np.int8)
+        rows = np.full((k, c), G, np.int32)
+        for r in range(k):
+            n = rng.integers(1, c + 1)
+            rows[r, :n] = rng.choice(np.arange(1, G), size=n, replace=False)
+        rows[1, 0] = 5  # a row with pending slots, recycled mid-block
+        start = rng.integers(0, 5, (k, c)).astype(np.int32)
+        churn_t = tuple(torch.from_numpy(a) for a in (
+            rows, rng.integers(1, 9, (k, c)).astype(np.int32), start,
+            (start + rng.integers(0, 5, (k, c))).astype(np.int32),
+        ))
+        tick_mask = torch.from_numpy(rng.random(k) < 0.6)
+        ack_t, vote_t = torch.from_numpy(ack), torch.from_numpy(vote_new)
+        kout = tk._multiround_launch(
+            _state(f), CPU, ack_t, vote_t, churn_t, tick_mask, tick, True,
+            votes, churn, hier, reads=reads, reset_reads=True,
+        )
+        pout = tk.quorum_multiround_impl(
+            _state(f), ack_t, vote_t, *churn_t, tick_mask, *reads, do_tick=tick,
+            has_votes=votes, has_churn=churn, has_hier=hier, has_reads=True,
+        )
+        tag = (p, s, tick, votes, hier, churn)
+        _assert_same(kout, pout, tag)
+        for name in ("read_done_count", "read_done_index"):
+            assert torch.equal(getattr(kout, name), getattr(pout, name)), (tag, name)
+        assert int(pout.read_done_count[0, 0]) == 18  # two batches of 9
+        assert int(pout.read_done_index[0, 0]) == 7
+        if churn:
+            purge = tk._multiround_launch(
+                _state(f), CPU, ack_t, vote_t, churn_t, tick_mask, tick, True,
+                votes, True, hier, reset_reads=True,
+            )
+            plain = tk.quorum_multiround_impl(
+                _state(f), ack_t, vote_t, *churn_t, tick_mask, do_tick=tick,
+                has_votes=votes, has_churn=True, has_hier=hier, purge_reads=True,
+            )
+            _assert_same(purge, plain, tag + ("purge",))
+            assert int(plain.state.read_count[5].sum()) == 0
+    counts = tk.launch_counts()
+    assert counts["read_plane"] == 16 and counts["quorum_multiround"] == 24
+
+
+def test_emulated_read_slot_cap_is_enforced(launch):
+    f = ts.state_to_numpy(ts.make_state(4, 3, n_read_slots=9, device="cpu"))
+    st = _state(f)
+    z = torch.zeros((4, 3), dtype=torch.int32)
+    reads = (torch.full((4, 9), -1, dtype=torch.int32),
+             torch.zeros((4, 9), dtype=torch.int32),
+             torch.zeros((4, 9, 3), dtype=torch.bool))
+    with pytest.raises(ValueError, match="read slots"):
+        tk._dense_launch(st, CPU, z, z.bool(), None, False, True, False, reads=reads)
+    with pytest.raises(ValueError, match="read_stage_cnt"):
+        tk._dense_launch(_state(ts.state_to_numpy(ts.make_state(4, 3, device="cpu"))),
+                         CPU, z, z.bool(), None, False, True, False,
+                         reads=(reads[0][:, :4].contiguous(), reads[1], reads[2][:, :4].contiguous()))

@@ -302,13 +302,14 @@ def test_engine_needs_a_device_and_refuses_later_planes():
     eng = BatchedQuorumEngine(4, 3, device="cpu")
     assert eng.fused_ready
     eng.add_group(1, node_ids=[1, 2, 3], self_id=1)
-    for call in (lambda: eng.stage_read(1),
+    for call in (lambda: eng.stage_kv_read(1, 0),
                  lambda: eng.stage_kv_ops(1, [1], [0], [0]),
                  lambda: eng.warmup_fused(), lambda: eng.enable_obs(),
                  lambda: eng.warm_plan(), lambda: eng.kv_values(1)):
         with pytest.raises(NotImplementedError, match="later slice"):
             call()
-    # the hier and telemetry planes are carried now
+    # the read, hier and telemetry planes are carried now
+    assert eng.stage_read(1, count=2) == 0 and eng.read_slots_free(1) == 3
     eng.set_hier(1, [1, 2], 2)
     eng.enable_telem()
     assert eng.telem_enabled and eng.telem_snapshot() is None

@@ -342,7 +342,17 @@ def test_quorum_multiround_padded_block_matches_jax():
 OFF_SLICE = ["has_hier", "has_telem", "has_reads", "has_kv"]
 # planes the port carries: set alone they run; beside a plane it does not
 # carry, the refusal still comes
-PORTED = {"has_hier", "has_telem"}
+PORTED = {"has_hier", "has_telem", "has_reads"}
+
+
+def _read_inputs(entry, g=4, p=3, s=ts.READ_SLOTS):
+    """Empty read-plane inputs (no stage, no echo) for the entry's shape."""
+    lead = (1,) if entry == "quorum_multiround" else ()
+    return {
+        "read_stage_idx": torch.full(lead + (g, s), -1, dtype=torch.int32),
+        "read_stage_cnt": torch.zeros(lead + (g, s), dtype=torch.int32),
+        "read_ack": torch.zeros(lead + (g, s, p), dtype=torch.bool),
+    }
 
 
 @pytest.mark.parametrize("flag", OFF_SLICE)
@@ -361,9 +371,14 @@ def test_off_slice_flags_raise(entry, flag):
                 torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
                 torch.ones((1,), dtype=torch.bool))
     kw = {flag: True}
+    if flag == "has_reads" and entry != "quorum_step":
+        # the sparse step takes has_reads as the fold's hint alone
+        kw.update(_read_inputs(entry))
     if flag in PORTED:
         out = getattr(tk, entry)(st, *args, **kw)
         assert (out.telem is not None) == (flag == "has_telem")
+        assert (out.read_done_count is not None) == (
+            flag == "has_reads" and entry != "quorum_step")
         kw["has_kv"] = True
     with pytest.raises(NotImplementedError, match="later slice"):
         getattr(tk, entry)(st, *args, **kw)
@@ -377,11 +392,11 @@ def test_plane_purge_on_recycle_raises(flag):
             torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
             torch.ones((1,), dtype=torch.bool))
     kw = {flag: True}
-    if flag == "purge_telem":
-        # the telemetry plane is carried: its purge runs, and a purge the
-        # port does not carry, beside it, still raises
+    if flag in ("purge_reads", "purge_telem"):
+        # the read and telemetry planes are carried: their purge runs, and
+        # a purge the port does not carry, beside it, still raises
         tk.quorum_multiround(st, *args, has_churn=True, **kw)
-        kw["purge_reads"] = True
+        kw["purge_kv"] = True
     with pytest.raises(NotImplementedError, match="later slice"):
         tk.quorum_multiround(st, *args, has_churn=True, **kw)
     # without churn no recycle runs, so the flag has nothing to reset
@@ -394,5 +409,5 @@ def test_wrappers_count_no_launch_on_the_cpu():
     run_dense(f, dense_inputs(7000, 16, 3))
     assert tk.launch_counts() == {
         "quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
-        "telem_fold": 0, "finish_hier": 0,
+        "telem_fold": 0, "finish_hier": 0, "read_plane": 0,
     }
