@@ -44,14 +44,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    slots, the hier rule on a third of the rows and the fold on) through
    the sparse path (read rounds forced dense) and the fused path, the
    card equal to the CPU after every step in every state field, the
-   read egress and the telemetry snapshot.
+   read egress and the telemetry snapshot;
+9. rung 4's write window with the device state machine on
+   (``bench_e2e.py:run_devsm``'s engine half): 65,536 groups x 5 slots,
+   K = 16, 8 pipelined dispatches after a warm-up block; every write is a
+   SET on one of 16 key slots (8 a group a block, in one ``stage_kv_ops``
+   call) and every group stages 2 KV reads a block; every block's
+   captures, the final values and every watermark against a numpy oracle
+   that applies the SETs in log order at the watermark, and exactly
+   65,536 x 8 x 9 ops applied;
+10. a devsm op script at 65,536 groups x 5 slots (SETs on a third of the
+   groups, KV reads, an overfilled entry buffer, a transition, a rebase
+   and a recycle with entries buffered, a KV image restored, a dispatch
+   with no kv event while entries sit buffered, the recycle purge alone,
+   the hier rule and the fold on) through the sparse path (kv rounds
+   forced dense) and the fused path, the card equal to the CPU after
+   every step in every state field, the kv egress and the telemetry
+   snapshot.
 
 Phase 2 also holds the READS instances of K1 and K3 (the read plane)
 against the plain versions at 65,536 x 5 over the flag grids, and at
-4,096 groups for every peer width and S in {4, 8}.  Each of phases 3 to
-8 drives a main path: the launch counters are zeroed just before it and
-read just after, and every kernel that path runs must have launched.  JSON lines report what was measured; the line before the
-last is the card's name and power limit, the last line the result.
+4,096 groups for every peer width and S in {4, 8}; and the device state
+machine (``csrc/kv_plane.cu``) after K1 and K3 at 65,536 x 5, K = 16, with
+(V, E, R) = (16, 16, 4), over their flag grids, with and without the read
+plane, the hier rule and the fold, and its recycle purge alone, with the
+reference's bit-exact traps injected, and at 4,096 groups for every peer
+width and (V, E, R) in {(16, 16, 4), (1, 1, 1), the caps (1024, 32, 8)}.
+Each of phases 3 to 10 drives a main path: the launch counters are
+zeroed just before it and read just after, and every kernel that path
+runs must have launched.  JSON lines report what was measured; the line
+before the last is the card's name and power limit, the last line the
+result.
 """
 from __future__ import annotations
 
@@ -88,6 +111,11 @@ TPU_KERNELS = {  # the JAX function each CUDA kernel replaces
     # read_confirm (:331) inside _read_plane; timed as K3's at rung 4
     "read_plane": ("dragonboat_tpu_torch/csrc/quorum.cuh",
                    "dragonboat_tpu/ops/kernels.py:362"),
+    # the device state machine, a kernel of its own after K1 or K3 (K3
+    # passes it each round's watermark through a (K, G) trace); timed
+    # alone at rung 4's K = 16 shape
+    "kv_plane": ("dragonboat_tpu_torch/csrc/kv_plane.cu",
+                 "dragonboat_tpu/ops/kernels.py:402"),
 }
 STEP_KERNELS = ("quorum_step_dense", "quorum_step", "quorum_multiround")
 
@@ -119,11 +147,15 @@ def nvidia_smi_line() -> str:
 # ----------------------------------------------------------------------
 
 
-def random_fields(ts, seed, g, p, s=None):
+def random_fields(ts, seed, g, p, s=None, kv=None):
     """A random state; with ``s`` read slots it also holds pending read
-    batches and echo bits, and self slots out of range on both sides."""
+    batches and echo bits, and self slots out of range on both sides; with
+    ``kv`` = (V, E) a device state machine of V value slots and E entry
+    slots with random values and buffered entries (keys in and outside
+    [0, V)) and a few rows whose watermark is negative."""
     rng = np.random.default_rng(seed)
-    widths = {"p": p, "s": s or ts.READ_SLOTS, "v": ts.KV_SLOTS, "e": ts.KV_ENT_SLOTS}
+    v, e = kv or (ts.KV_SLOTS, ts.KV_ENT_SLOTS)
+    widths = {"p": p, "s": s or ts.READ_SLOTS, "v": v, "e": e}
     f = {name: np.full((g,) + tuple(widths[a] for a in axes), fill, dtype)
          for name, (axes, dtype, fill) in ts.FIELDS.items()}
     f["node_state"][:] = rng.choice([0, 1, 2, 2, 2, 3, 4], g)
@@ -161,7 +193,52 @@ def random_fields(ts, seed, g, p, s=None):
         f["read_count"][:] = rng3.choice([0, 0, 1, 2, 5], (g, s))
         f["read_acks"][:] = rng3.random((g, s, p)) < 0.3
         f["self_slot"][5::17] = -1
+    if kv is not None:
+        rng4 = np.random.default_rng(seed + 19)
+        f["kv_value"][:] = rng4.integers(-50, 50, (g, v))
+        f["kv_ent_index"][:] = np.where(rng4.random((g, e)) < 0.4,
+                                        rng4.integers(0, 16, (g, e)), -1)
+        f["kv_ent_key"][:] = rng4.integers(-2, v + 3, (g, e))
+        f["kv_ent_val"][:] = rng4.integers(-2**31, 2**31, (g, e))
+        f["committed"][7::23] = -3
     return f
+
+
+def kv_inputs(seed, g, v, e, r, k=None):
+    """One dispatch's devsm inputs: stage index (-1 and below = none),
+    keys in and outside [0, V), int32 values, read keys (-1, -4, >= V),
+    with a leading K axis for K3."""
+    rng = np.random.default_rng(seed + 23)
+    lead = () if k is None else (k,)
+    idx = np.where(rng.random(lead + (g, e)) < 0.35, rng.integers(0, 20, lead + (g, e)),
+                   rng.choice([-1, -1, -2, -9], lead + (g, e))).astype(np.int32)
+    key = rng.integers(-2, v + 3, lead + (g, e)).astype(np.int32)
+    val = rng.integers(-2**31, 2**31, lead + (g, e)).astype(np.int32)
+    rk = np.where(rng.random(lead + (g, r)) < 0.5, rng.integers(0, v + 3, lead + (g, r)),
+                  rng.choice([-1, -1, -4], lead + (g, r))).astype(np.int32)
+    return idx, key, val, rk
+
+
+def kv_traps(fields, kv):
+    """The reference's bit-exact traps, injected: row 0 holds two ready
+    entries sharing key 0 and the largest index (their int32 values sum
+    and wrap) beside an earlier one; row 1 reads keys V and -4; row 2 is
+    a follower with a negative watermark reading every round (the K-round
+    carry keeps no capture at a negative index); row 3 stages at index -5."""
+    idx, key, val, rk = kv
+    at = (0,) if idx.ndim == 3 else ()
+    v = fields["kv_value"].shape[1]
+    fields["committed"][0] = 30
+    fields["kv_ent_index"][0] = -1
+    idx[at + (0,)] = -1
+    n = min(3, idx.shape[-1])
+    idx[at + (0, slice(0, n))] = [9, 9, 4][:n]
+    key[at + (0, slice(0, n))] = 0
+    val[at + (0, slice(0, n))] = [2**31 - 1, 5, 77][:n]
+    rk[at + (1, slice(0, min(2, rk.shape[-1])))] = [v, -4][:min(2, rk.shape[-1])]
+    fields["committed"][2], fields["node_state"][2] = -5, 0
+    rk[..., 2, :] = 0
+    idx[at + (3, 0)] = -5
 
 
 def read_inputs(seed, g, p, s, k=None):
@@ -293,6 +370,29 @@ def kernel_bytes(name, inputs, flags, before, after):
     return n
 
 
+def kv_bytes(before, after, inputs, k, churn):
+    """Bytes the device state machine must move on this run's data: the kv
+    state read once a row (V + 3E ints), its inputs, the (K, G) watermark
+    trace that K3 writes and it reads, K3's (K, G) churn map where
+    recycles reset rows, the kv cells that change and the (G, R) x 2 +
+    (G,) egress."""
+    g, v = before.kv_value.shape
+    e = before.kv_ent_index.shape[1]
+    r = inputs[3].shape[-1]
+    changed = sum(int((a != b).sum()) * 4 for a, b in (
+        (before.kv_value, after.kv_value), (before.kv_ent_index, after.kv_ent_index),
+        (before.kv_ent_key, after.kv_ent_key), (before.kv_ent_val, after.kv_ent_val)))
+    return (g * (v + 3 * e) * 4 + sum(a.nbytes for a in inputs) + 2 * k * g * 4
+            + (k * g * 4 if churn else 0) + changed + (2 * g * r + g) * 4)
+
+
+def kv_ops(g, e, r, k, applied):
+    """Integer operations of the plane per launch on this run's data: per
+    row and round the stage (3E), the ready test (2E), the reads (~4R)
+    and control (~10); per applied entry the winner search (~3E)."""
+    return g * k * (5 * e + 4 * r + 10) + 3 * e * applied
+
+
 def telem_bytes(st_before, st_after, k, count_reads, count_kv):
     """Bytes the fold must move: live, node_state, last_index, committed
     and telem_prev_committed of every row (14 B), the occupancy arrays
@@ -385,6 +485,11 @@ def _equal_outputs(torch, ts, tk, kout, pout, tag):
     if pout.read_done_count is not None:
         pairs += [(name, getattr(kout, name), getattr(pout, name))
                   for name in ("read_done_count", "read_done_index")]
+    check((kout.kv_read_val is None) == (pout.kv_read_val is None),
+          f"{tag}: kv egress presence differs")
+    if pout.kv_read_val is not None:
+        pairs += [(name, getattr(kout, name), getattr(pout, name))
+                  for name in ("kv_read_val", "kv_read_index", "kv_applied")]
     if pout.telem is not None:
         pairs += [(f"telem {name}", a, b.to(torch.int32)) for name, a, b in
                   zip(tk.TelemAggregate._fields, kout.telem, pout.telem)]
@@ -410,7 +515,7 @@ def _run_pair(torch, ts, tk, name, fields, inputs, flags, dev):
     groups of ``inputs`` are the entry's positional arguments in order)."""
     st_k = ts.state_from_numpy(fields, dev)
     st_p = ts.state_from_numpy(fields, dev)
-    args = [torch.from_numpy(np.array(a)).to(dev) for grp in inputs for a in grp]
+    args = _device_args(torch, inputs, dev)
     entry, plain = _entries(tk, name)
     kout = entry(st_k, *args, **flags)
     pout = plain(st_p, *args, **flags)
@@ -418,9 +523,18 @@ def _run_pair(torch, ts, tk, name, fields, inputs, flags, dev):
     return kout, pout
 
 
-def _inputs(name, seed, g, p, k=8, c=2048, cap=4096, s=None):
+def _device_args(torch, inputs, dev):
+    """The groups of ``inputs`` as one flat list of card tensors (None
+    stays None: a plane's unread placeholders)."""
+    return [None if a is None else torch.from_numpy(np.array(a)).to(dev)
+            for grp in inputs for a in grp]
+
+
+def _inputs(name, seed, g, p, k=8, c=2048, cap=4096, s=None, kv=None):
     """The entry's inputs; with ``s`` read slots the read-plane inputs
-    follow as the last group."""
+    follow as a group, and with ``kv`` = (V, E, R) the devsm inputs (the
+    read group then holds placeholders when ``s`` is None)."""
+    lead = k if name == "quorum_multiround" else None
     if name == "quorum_step_dense":
         out = (dense_inputs(seed, g, p),)
     elif name == "quorum_step":
@@ -429,7 +543,11 @@ def _inputs(name, seed, g, p, k=8, c=2048, cap=4096, s=None):
         ack, votes, churn, tm = multiround_inputs(seed, k, g, p, c)
         out = (ack, votes), churn + (tm,)
     if s is not None:
-        out += (read_inputs(seed, g, p, s, k if name == "quorum_multiround" else None),)
+        out += (read_inputs(seed, g, p, s, lead),)
+    if kv is not None:
+        if s is None:
+            out += ((None, None, None),)
+        out += (kv_inputs(seed, g, *kv, k=lead),)
     return out
 
 
@@ -511,6 +629,162 @@ def _reads_small(name):
         off = dict(all_on, do_tick=False, has_votes=False, track_contact=False)
     return (all_on, dict(all_on, has_hier=True), off,
             _hier_telem(READS_VARIANT[name], name))
+
+
+# the device state machine at rung 4's shape: 65,536 x 5, K = 16 for K3,
+# (V, E, R) = (16, 16, 4); at 4,096 groups also (1, 1, 1) and the caps
+KV_G, KV_K = 65_536, 16
+KV_DIMS = (16, 16, 4)
+KV_SMALL_DIMS = (KV_DIMS, (1, 1, 1), (1024, 32, 8))
+
+
+def _kv_grid(name):
+    """The flag grid of ``name`` with the device state machine on, with
+    and without the read plane and the hier rule, and the fold counting
+    entry slots after it; for K3 also the recycle purge alone (purge_kv
+    with churn, the plane off), and with the fold."""
+    base = [dict(f, has_kv=True) for f in _flag_grid(name)]
+    grid = (base + [dict(f, has_reads=True) for f in base[::2]]
+            + [dict(f, has_hier=True) for f in base[1::2]])
+    grid.append(_hier_telem(dict(base[-1], has_reads=True), name))
+    if name == "quorum_multiround":
+        purge = [dict(f, purge_kv=True) for f in _flag_grid(name) if f["has_churn"]]
+        grid += purge + [dict(purge[-1], has_telem=True, purge_telem=True)]
+    return grid
+
+
+def _kv_small(name):
+    """The kv cases run at every peer width: everything on (K1 with the
+    read plane and the hier rule too, K3 with churn), and K3's purge
+    alone."""
+    all_on = dict(_flag_grid(name)[0], do_tick=True, has_votes=True, track_contact=True,
+                  has_kv=True)
+    if name == "quorum_multiround":
+        all_on["has_churn"] = True
+        return all_on, dict(all_on, has_kv=False, purge_kv=True)
+    return all_on, dict(all_on, has_reads=True, has_hier=True, has_telem=True)
+
+
+def _kv_case(torch, ts, tk, dev, name, seed, g, p, flags, dims, k, c):
+    """One kernel-vs-plain comparison with the devsm inputs and the
+    injected traps (``kv_traps``) where the plane runs."""
+    v, e, r = dims
+    s = 4 if flags.get("has_reads") else None
+    fields = random_fields(ts, seed, g, p, s, kv=(v, e))
+    inputs = _inputs(name, seed, g, p, k=k, c=c, s=s,
+                     kv=dims if flags.get("has_kv") else None)
+    if flags.get("has_kv"):
+        kv_traps(fields, inputs[-1])
+    kout, pout = _run_pair(torch, ts, tk, name, fields, inputs, flags, dev)
+    return _equal_outputs(torch, ts, tk, kout, pout, f"{name} G={g} P={p} {dims} {flags}")
+
+
+def plain_kv_rounds(torch, tk, st, inputs, trace):
+    """The plain version of one kv_plane launch after K3: the reference's
+    ``_kv_plane`` at each round's watermark of ``trace``, with the
+    K-round carry."""
+    g, r = trace.shape[1], inputs[3].shape[-1]
+    val = torch.zeros((g, r), dtype=torch.int32, device=trace.device)
+    idx = torch.full((g, r), -1, dtype=torch.int32, device=trace.device)
+    ap = torch.zeros((g,), dtype=torch.int32, device=trace.device)
+    for k in range(trace.shape[0]):
+        st, rv, ri, a = tk._kv_plane(st._replace(committed=trace[k]), *(x[k] for x in inputs))
+        cap = ri >= 0
+        val, idx, ap = torch.where(cap, rv, val), torch.where(cap, ri, idx), ap + a
+    return st, val, idx, ap
+
+
+def _time_kv(torch, ts, tk, dev, g=KV_G, p=5, k=KV_K, dims=KV_DIMS, seed=33_000):
+    """Device time of one kv_plane launch at rung 4's shape (K rounds of
+    a watermark rising one index a round, no churn) on a restored state,
+    its bound, and the plain version's wall time; the launch is held
+    against the plain version, bit for bit."""
+    v, e, r = dims
+    fields = random_fields(ts, seed, g, p, kv=(v, e))
+    kv = kv_inputs(seed, g, v, e, r, k=k)
+    trace = (np.maximum(fields["committed"], 0)[None, :]
+             + np.arange(1, k + 1)[:, None]).astype(np.int32)
+    st_k = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
+    ins = [torch.from_numpy(a).to(dev) for a in kv]
+    tr = torch.from_numpy(trace).to(dev)
+    ck, block = tk._ckv(st_k, dev, ins, k, tr, None)
+    kern = lambda: tk._kv_run(dev, ck, tk._KV_PLANE | tk._KV_CARRY)  # noqa: E731
+    plain = lambda: plain_kv_rounds(torch, tk, st_p, ins, tr)  # noqa: E731
+    saved = [t.clone() for t in st_k]
+
+    def reset():
+        for t, s in zip(st_k, saved):
+            t.copy_(s)
+
+    pst, pv, pi, pa = plain()
+    nbytes = kv_bytes(st_p, pst, kv, k, False)
+    b_ms, b_by = bound_ms(nbytes, kv_ops(g, e, r, k, int(pa.sum())))
+    ms = device_ms(torch, kern, reset)
+    reset()
+    kern()
+    torch.cuda.synchronize()
+    rv, ri, ra = tk._kv_views(block, g, r)
+    err = 0
+    for name, a, b in [(n, getattr(st_k, n), getattr(pst, n)) for n in
+                       ("kv_value", "kv_ent_index", "kv_ent_key", "kv_ent_val")] + [
+                       ("kv_read_val", rv, pv), ("kv_read_index", ri, pi), ("kv_applied", ra, pa)]:
+        err = max(err, int((a.long() - b.long()).abs().max()))
+        check(torch.equal(a, b), f"kv_plane timed: {name} differs")
+    return {
+        "ms": ms, "plain_ms": wall_ms(torch, plain, iters=10),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "applied": int(pa.sum()), "captured": int((pi >= 0).sum()),
+        "shape": {"G": g, "K": k, "V": v, "E": e, "R": r},
+    }, err
+
+
+def _time_trace(torch, ts, tk, dev, g=KV_G, p=5, k=KV_K, seed=34_000, iters=30):
+    """K3's device time at rung 4's write shape (K = 16, no churn, no
+    ticks, no contact) on a restored state, without the device state
+    machine and with it, where K3 also stores the (K, G) watermark trace;
+    the second span runs from K3's start to the kv_plane launch."""
+    fields = random_fields(ts, seed, g, p, kv=KV_DIMS[:2])
+    inputs = _inputs("quorum_multiround", seed, g, p, k=k, kv=KV_DIMS)
+    flags = dict(do_tick=False, track_contact=False, has_votes=False, has_churn=False)
+    st = ts.state_from_numpy(fields, dev)
+    saved = [t.clone() for t in st]
+    args = _device_args(torch, inputs, dev)
+    mids = []
+    orig = tk._kv_run
+
+    def marked(*a, **kw):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        mids.append(ev)
+        return orig(*a, **kw)
+
+    def span(fn, to_mid):
+        pairs = []
+        for i in range(iters + 3):
+            for t, s0 in zip(st, saved):
+                t.copy_(s0)
+            if hasattr(torch.cuda, "_sleep"):
+                torch.cuda._sleep(2_000_000)
+            mids.clear()
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            fn()
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            if i >= 3:
+                pairs.append((b, mids[0] if to_mid else e))
+        torch.cuda.synchronize()
+        return statistics.median(b.elapsed_time(e) for b, e in pairs)
+
+    tk._kv_run = marked
+    try:
+        without = span(lambda: tk.quorum_multiround(st, *args[:7], **flags), False)
+        with_trace = span(lambda: tk.quorum_multiround(st, *args, has_kv=True, **flags), True)
+    finally:
+        tk._kv_run = orig
+    return {"ms_without_kv": without, "ms_with_trace": with_trace,
+            "trace_bytes": k * g * 4, "shape": {"G": g, "P": p, "K": k}, "flags": flags}
 
 
 def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag):
@@ -609,6 +883,8 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
             max_err["telem_fold"] = max(max_err["telem_fold"], err)
         if flags.get("has_reads") or flags.get("purge_reads"):
             max_err["read_plane"] = max(max_err["read_plane"], err)
+        if flags.get("has_kv") or flags.get("purge_kv"):
+            max_err["kv_plane"] = max(max_err["kv_plane"], err)
         compared += 1
 
     for name in STEP_KERNELS:
@@ -661,6 +937,23 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
                     n_reads += 1
     emit({"phase": "reads_vs_plain", "compared": n_reads,
           "max_abs_err": max_err["read_plane"]})
+    # the device state machine after K1 and K3 at rung 4's width, then at
+    # 4,096 groups for every peer width and (V, E, R) in KV_SMALL_DIMS
+    n_kv = 0
+    for name in ("quorum_step_dense", "quorum_multiround"):
+        for i, flags in enumerate(_kv_grid(name)):
+            seed = 70_000 + 100 * STEP_KERNELS.index(name) + i
+            record(name, flags, _kv_case(torch, ts, tk, dev, name, seed, KV_G, p, flags,
+                                         KV_DIMS, KV_K, 2048))
+            n_kv += 1
+        for width in (1, 2, 3, 4, 5, 6, 7, 8, 12):
+            for d, dims in enumerate(KV_SMALL_DIMS):
+                for j, flags in enumerate(_kv_small(name)):
+                    seed = 80_000 + 100 * width + 10 * d + j
+                    record(name, flags, _kv_case(torch, ts, tk, dev, name, seed, 4096, width,
+                                                 flags, dims, 4, 64))
+                    n_kv += 1
+    emit({"phase": "kv_vs_plain", "compared": n_kv, "max_abs_err": max_err["kv_plane"]})
     telem_cases = [(g, k, reads, kv) for k in (1, 8, 16)
                    for reads in (False, True) for kv in (False, True)]
     telem_cases += [(5, 8, True, True), (5, 1, False, False), (1, 8, True, False)]
@@ -695,6 +988,11 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
         emit({"phase": "kernel_time", "name": f"{name}[reads]", **t})
         if name == "quorum_multiround":
             timings["read_plane"] = t
+    timings["kv_plane"], err = _time_kv(torch, ts, tk, dev)
+    record("kv_plane", {"has_kv": True}, err)
+    emit({"phase": "kernel_time", "name": "kv_plane", **timings["kv_plane"]})
+    emit({"phase": "kernel_time", "name": "quorum_multiround[trace]",
+          **_time_trace(torch, ts, tk, dev)})
     for reads, kv in ((False, False), (True, True)):
         t, err = _time_telem(torch, ts, tk, dev, g, p, TELEM_VARIANT["k"], reads, kv)
         record("telem_fold", {}, err)
@@ -736,6 +1034,9 @@ def timed_engine(torch, engine_mod, split):
             return out
 
         def _upload(self, tensors):
+            tensors = tuple(tensors)
+            if "h2d_bytes" in split:
+                split["h2d_bytes"].append(sum(t.nbytes for t in tensors))
             return self._timed("h2d_ms", lambda: super(TimedEngine, self)._upload(tensors))
 
         def _launch_multiround(self, args, *a):
@@ -1556,6 +1857,366 @@ def phase_read_ops(torch, engine_mod, dev):
 
 
 # ----------------------------------------------------------------------
+# phase 9: rung 4's write window with the device state machine on
+# ----------------------------------------------------------------------
+
+
+def phase_rung4_devsm(torch, engine_mod, tk, ts, dev, n_groups=65_536, k=16, dispatches=8):
+    """``bench_e2e.py:run_devsm``'s engine half at rung 4's width: every
+    write is a SET on one of V key slots, and KV reads are served from the
+    device image.  Per block each group acks one index a round on 3 slots
+    (``ack_block_rounds``; the three rounds that carry other staging take
+    their acks from ``ack_block``), stages 8 SETs at every other index of
+    the block in one ``stage_kv_ops`` call (odd indexes in one block, even
+    in the next, so with one block in flight 8 + 8 ops fill E = 16), and
+    stages 2 KV reads, in rounds 4 and 12.  Every block's captures, the
+    final values and every watermark are held against a numpy oracle that
+    applies the SETs in log order at the watermark."""
+    split = {"stage_ms": [], "h2d_ms": [], "kernel_ms": [], "d2h_ms": [], "h2d_bytes": []}
+    TimedEngine = timed_engine(torch, engine_mod, split)
+    eng = TimedEngine(n_groups, 5, event_cap=4 * n_groups, device_ticks=False, device=dev)
+    eng._events = []
+    for cid in range(1, n_groups + 1):
+        eng.add_group(cid, node_ids=[1, 2, 3, 4, 5], self_id=1)
+        eng.set_leader(cid, term=1, term_start=1, last_index=1)
+    eng._upload_dirty()
+    v, e, r = eng.n_kv_slots, eng.n_kv_ents, eng.n_kv_reads
+    check((v, e, r) == KV_DIMS, f"rung4_devsm: (V, E, R) = {(v, e, r)}")
+    rng = np.random.default_rng(97)
+    rows = np.arange(n_groups, dtype=np.int32)
+    rows3 = np.concatenate([rows, rows, rows])
+    slots = np.repeat(np.arange(3, dtype=np.int32), n_groups)
+    cids = np.arange(1, n_groups + 1).tolist()
+    row_cid = eng.row_cids()
+    oracle = np.zeros((n_groups, v), np.int64)  # the values applied so far
+    expect = []  # per block: (watermark, rows, slots, values, abs indexes)
+    calls = {name: [] for name in ("stage_kv_ops", "stage_kv_read", "ack_block",
+                                   "ack_block_rounds", "step_rounds")}
+    st = {"rel": 1, "queued": 0}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        calls[name][-1] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def acks(lo, hi):
+        """Rounds lo..hi-1 of the block: one index a round."""
+        base = st["rel"]
+        if hi - lo == 1:
+            timed("ack_block", eng.ack_block, rows3, slots,
+                  np.full(rows3.size, base + 1 + lo, np.int32))
+        else:
+            rels = (base + 1 + np.arange(lo, hi, dtype=np.int32))[:, None]
+            timed("ack_block_rounds", eng.ack_block_rounds, rows3, slots,
+                  rels + np.zeros((1, rows3.size), np.int32))
+
+    def reads(keys):
+        t = time.perf_counter()
+        out = np.array([eng.stage_kv_read(cid, key) for cid, key in zip(cids, keys.tolist())])
+        calls["stage_kv_read"][-1] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def block(b):
+        for name in calls:
+            calls[name].append(0.0)
+        base = st["rel"]
+        idxs = base + 1 + b % 2 + 2 * np.arange(8)
+        keys = rng.integers(0, v, (n_groups, 8))
+        values = rng.integers(-2**31, 2**31, (n_groups, 8))
+        t = time.perf_counter()
+        for i, cid in enumerate(cids):
+            if not eng.stage_kv_ops(cid, idxs, keys[i], values[i]):
+                st["queued"] += 1
+        calls["stage_kv_ops"][-1] += (time.perf_counter() - t) * 1e3
+        rkeys = rng.integers(0, v, (2, n_groups))
+        acks(0, 1)                      # round 0: the SETs and its acks
+        acks(1, 4)
+        acks(4, 5)                      # round 4: a read
+        s4 = reads(rkeys[0])
+        acks(5, 12)
+        acks(12, 13)                    # round 12: a read
+        s12 = reads(rkeys[1])
+        acks(13, k)
+        st["rel"] = base + k
+        # the oracle: the SETs in log order, each read at its round's watermark
+        caps, done = [], base
+        for w, sl, rk in ((base + 5, s4, rkeys[0]), (base + 13, s12, rkeys[1]),
+                          (base + k, None, None)):
+            for j in range(8):
+                if done < idxs[j] <= w:
+                    oracle[rows, keys[:, j]] = values[:, j]
+            done = w
+            if sl is not None:
+                caps.append((np.full(n_groups, w, np.int64), sl, oracle[rows, rk]))
+        er = np.concatenate([rows, rows]).astype(np.int64)
+        ei, es, ev = (np.concatenate(parts).astype(np.int64) for parts in zip(*caps))
+        order = np.lexsort((es, er))
+        expect.append((base + k, er[order], es[order], ev[order], ei[order]))
+        return timed("step_rounds", eng.step_rounds, do_tick=False, pipelined=True)
+
+    kv_events = []
+    orig_run = tk._kv_run
+
+    def timed_kv(*a, **kw):
+        s0 = torch.cuda.Event(enable_timing=True)
+        e0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        out = orig_run(*a, **kw)
+        e0.record()
+        kv_events.append((s0, e0))
+        return out
+
+    results, applied = {}, 0
+    tk._kv_run = timed_kv
+    try:
+        block(0)  # warm-up block
+        results[0] = eng.harvest()
+        for key in split:
+            split[key].clear()
+        for key in calls:
+            calls[key].clear()
+        eng._events.clear()
+        kv_events.clear()
+        launches0 = tk.launch_counts()
+        disp_ms = []
+        t0 = time.perf_counter()
+        for b in range(1, dispatches + 1):
+            td = time.perf_counter()
+            res = block(b)
+            disp_ms.append((time.perf_counter() - td) * 1e3)
+            if res is not None:
+                results[b - 1] = res
+        results[dispatches] = eng.harvest()
+        elapsed = time.perf_counter() - t0
+    finally:
+        tk._kv_run = orig_run
+    launches = {name: (n - launches0[name]) / dispatches for name, n in tk.launch_counts().items()}
+    torch.cuda.synchronize()
+    for key, s0, e0 in eng._events:
+        split[key].append(s0.elapsed_time(e0))
+    kv_ms = [s0.elapsed_time(e0) for s0, e0 in kv_events]
+
+    check(sorted(results) == list(range(dispatches + 1)), "rung4_devsm: a block's egress is missing")
+    for b, (w, er, es, ev, ei) in enumerate(expect):
+        res = results[b]
+        check(np.all(res.committed_rel == w), f"rung4_devsm: block {b}'s watermarks differ")
+        check(res.kv_cids is not None
+              and np.array_equal(res.kv_cids, row_cid[er])
+              and np.array_equal(res.kv_slots, es)
+              and np.array_equal(res.kv_vals, ev)
+              and np.array_equal(res.kv_index_abs, ei),
+              f"rung4_devsm: block {b}'s captures differ from the oracle")
+        check(res.kv_applied_ops == n_groups * 8,
+              f"rung4_devsm: block {b} applied {res.kv_applied_ops} ops")
+        applied += res.kv_applied_ops
+    expected = n_groups * 8 * (dispatches + 1)
+    check(applied == expected, f"rung4_devsm: {applied} ops applied, expected {expected}")
+    check(st["queued"] == 0 and not eng._kv_queue,
+          f"rung4_devsm: ops queued on the host: {st['queued']} calls, "
+          f"{sum(len(q) for q in eng._kv_queue.values())} ops")
+    f = ts.state_to_numpy(eng.dev)
+    check(np.all(f["committed"] == st["rel"]), "rung4_devsm: final watermarks differ")
+    check(np.array_equal(f["kv_value"], oracle.astype(np.int32)),
+          "rung4_devsm: final kv_value differs from the oracle")
+    check(np.all(f["kv_ent_index"] == -1), "rung4_devsm: entries left buffered")
+    kernel_ms = np.array(split["kernel_ms"])
+    out = {
+        "phase": "rung4_devsm",
+        "groups": n_groups, "peer_slots": 5, "rounds_per_dispatch": k,
+        "kv_slots": v, "kv_ents": e, "kv_reads": r, "dispatches": dispatches,
+        "blocks_checked_all_rows": len(expect),
+        "ops_applied": applied, "reads_captured": 2 * n_groups * (dispatches + 1),
+        "applied_ops_per_sec": n_groups * 8 * dispatches / elapsed,
+        "kv_reads_per_sec": n_groups * 2 * dispatches / elapsed,
+        "writes_per_sec": n_groups * k * dispatches / elapsed,
+        "dispatch_ms_p50": _p(disp_ms, 50), "dispatch_ms_p99": _p(disp_ms, 99),
+        "host_calls_ms_p50": {name: _p(vals, 50) for name, vals in calls.items()},
+        "host_staging_ms_p50": _p(split["stage_ms"], 50),
+        "h2d_bytes": int(np.median(split["h2d_bytes"])),
+        "h2d_ms_p50": _p(split["h2d_ms"], 50),
+        "k3_and_kv_ms_p50": _p(kernel_ms, 50),
+        "kv_plane_ms_p50": _p(kv_ms, 50),
+        "k3_ms_p50": _p(kernel_ms - np.array(kv_ms), 50),
+        "d2h_ms_p50": _p(split["d2h_ms"], 50),
+        "launches_per_block": launches,
+    }
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 10: the device state machine through the engine, cuda == cpu
+# ----------------------------------------------------------------------
+
+
+def _devsm_op_script(torch, engine_mod, dev, mode, n=65_536):
+    """Lockstep card/CPU engines under devsm traffic, with the hier rule
+    on a third of the rows and the fold on.  Rounds 0 and 1 stage SETs on
+    a third of the groups (partial acks leave some buffered) and KV
+    reads, and round 1 overfills one row's E slots (ops queue, then
+    drain).  Round 2 moves a leader with buffered entries through a
+    transition, rebases rows with buffered entries and restores a KV
+    image.  Round 3 stages no kv event while entries sit buffered and
+    releases most stalled acks: the plane must still run and apply them.
+    Round 4 recycles a row with buffered entries while another row's stay
+    buffered (the reset inside the plane); round 5 releases that row;
+    round 6 recycles a row on a block with nothing buffered (the purge
+    alone), and on the sparse path one sparse step follows (the fold
+    counting entry slots).  Round 7 stages SETs and reads again.  After
+    every step the card equals the CPU in every state field, the kv
+    egress, the host slot bookkeeping and the telemetry snapshot."""
+    pair = Lockstep(engine_mod, dev, n, dense_ingest={"sparse": False, "fused": "auto"}[mode],
+                    device_ticks=True)
+    pair.enable_telem()
+    h = pair.h
+    for cid in range(1, n + 1):
+        pair.add_group(cid, node_ids=[1, 2, 3, 4, 5], self_id=1, election_timeout=1000,
+                       rand_timeout=2000)
+        if cid % 3 == 0:
+            pair.set_hier(cid, [1, 2, 3], 2)
+        pair.set_leader(cid, term=1, term_start=1, last_index=1)
+    rng = np.random.default_rng(59)
+    v, e = h.n_kv_slots, h.n_kv_ents
+    last = {cid: 1 for cid in range(1, n + 1)}
+    kv_cids = list(range(1, n + 1, 3))
+    kv_set = set(kv_cids)
+    stalled = set(kv_cids[7::50])           # their followers withhold acks
+    x_cid, y_cid = sorted(stalled)[:2]      # kept stalled past round 3
+    next_cid = n + 1
+    seen = dict.fromkeys(("steps", "ops_staged", "applied", "captured", "queued_max",
+                          "kvfree_applied", "transition_purged", "rebased_buffered",
+                          "restored", "recycled_buffered", "purge_only_blocks"), 0)
+
+    def buffered(cid):
+        return int((h._kv_ent_rel[h.groups[cid].row] >= 0).sum())
+
+    def stage_ops(cids):
+        for cid in cids:
+            m = 1 + (cid + seen["steps"]) % 2
+            idxs = last[cid] + 1 + np.arange(m)
+            a, b = pair.stage_kv_ops(cid, idxs, rng.integers(0, v, m),
+                                     rng.integers(-2**31, 2**31, m))
+            check(a == b, f"devsm {mode}: stage_kv_ops answers differ")
+            last[cid] += m
+            seen["ops_staged"] += m
+
+    def stage_reads(cids):
+        for cid in cids:
+            if h.kv_reads_free(cid):
+                sa, sb = pair.stage_kv_read(cid, int(rng.integers(0, v)))
+                check(sa == sb, f"devsm {mode}: read slots differ")
+
+    def ack_all(release, partial_share):
+        live = sorted(h.groups)
+        rows = np.array([h.groups[c].row for c in live], np.int64)
+        rels = np.array([last[c] - h.groups[c].base for c in live], np.int64)
+        held = np.array([c in stalled and c not in release for c in live])
+        partial = rng.random(len(live)) < partial_share
+        f_rel = np.where(partial, np.maximum(rels - 1, 0), rels)
+        pair.ack_block(np.concatenate([rows, rows[~held], rows[~held]]),
+                       np.concatenate([np.zeros(rows.size), np.ones((~held).sum()),
+                                       np.full((~held).sum(), 2)]).astype(np.int64),
+                       np.concatenate([rels, f_rel[~held], rels[~held]]))
+
+    def settle(ra, rb, tag):
+        pair.compare(ra, rb, tag)
+        check(ra.kv_reads == rb.kv_reads and ra.kv_applied_ops == rb.kv_applied_ops,
+              f"{tag}: kv egress differs")
+        seen["applied"] += rb.kv_applied_ops
+        seen["captured"] += len(rb.kv_reads)
+        sc, sh = pair.c.telem_snapshot(), pair.h.telem_snapshot()
+        check(sh is not None and same_snapshot(sc, sh), f"{tag}: telemetry snapshots differ")
+        for name in pair.c.dev._fields:
+            check(torch.equal(getattr(pair.c.dev, name).cpu(), getattr(pair.h.dev, name)),
+                  f"{tag}: state field {name} differs")
+        check(np.array_equal(pair.c._kv_ent_rel, h._kv_ent_rel)
+              and pair.c._kv_queue.keys() == h._kv_queue.keys(),
+              f"{tag}: host slot bookkeeping differs")
+        seen["steps"] += 1
+
+    for rnd in range(8):
+        for cid in h.groups:
+            if cid not in kv_set:
+                last[cid] += 1  # writes without SETs
+        if rnd in (0, 1, 7):
+            stage_ops([c for c in kv_cids if c in h.groups])
+            stage_reads([int(c) for c in rng.choice(kv_cids, min(2000, len(kv_cids)),
+                                                     replace=False) if int(c) in h.groups])
+        if rnd == 1:  # more than E ops at once: the rest queue, then drain
+            idxs = last[1] + 1 + np.arange(e + 3)
+            a, b = pair.stage_kv_ops(1, idxs, rng.integers(0, v, e + 3), np.arange(e + 3))
+            check(a is False and b is False, f"devsm {mode}: overfill did not queue")
+            last[1] += e + 3
+            seen["queued_max"] = max(seen["queued_max"], len(h._kv_queue[h.groups[1].row]))
+        if rnd == 2:
+            t_cid = sorted(stalled)[2]
+            pair.sync_rows([h.groups[t_cid].row])
+            seen["transition_purged"] += buffered(t_cid) > 0
+            pair.set_follower(t_cid, term=2)
+            pair.set_leader(t_cid, term=3, term_start=last[t_cid] + 1,
+                            last_index=last[t_cid] + 1)
+            last[t_cid] += 1
+            some = [c for c in kv_cids[1:400] if buffered(c) and c not in stalled][:40]
+            pair.sync_rows([h.groups[c].row for c in some])
+            for cid in some:
+                pair.rebase(cid)
+            seen["rebased_buffered"] += len(some)
+            pair.kv_restore(4, np.arange(v) * 7 - 3)
+            seen["restored"] += 1
+        if rnd == 4:
+            pair.begin_round()
+            seen["recycled_buffered"] += buffered(x_cid) > 0
+            pair.stage_recycle(x_cid, next_cid, term=3, term_start=1, last_index=1)
+            last[next_cid] = 1
+            next_cid += 1
+        if rnd == 6:
+            z = kv_cids[5]
+            check(not h._kv_ents_buffered(), f"devsm {mode}: entries buffered before the purge")
+            pair.stage_recycle(z, next_cid, term=3, term_start=1, last_index=1)
+            last[next_cid] = 1
+            next_cid += 1
+            seen["purge_only_blocks"] += 1
+        release = ()
+        if rnd >= 3:
+            release = stalled - ({x_cid, y_cid} if rnd < 5 else set())
+        ack_all(release, 0.3 if rnd < 3 else 0.0)
+        kv_free = not h._kv_pending()
+        if mode == "fused":
+            pair.begin_round()
+            ra, rb = pair.step_rounds(do_tick=True, pad_rounds_to=4)
+        else:
+            ra, rb = pair.step(do_tick=True)
+        settle(ra, rb, f"devsm {mode} round {rnd}")
+        if rnd == 3:
+            check(kv_free and rb.kv_applied_ops > 0,
+                  f"devsm {mode} round 3: the kv-free dispatch applied nothing")
+            seen["kvfree_applied"] += rb.kv_applied_ops
+        if rnd == 6 and mode == "sparse":
+            # nothing buffered, no kv event: the sparse step, with the fold
+            # counting entry slots
+            for cid in sorted(h.groups)[:64]:
+                pair.heartbeat_resp(cid, 2)
+            settle(*pair.step(do_tick=True), f"devsm {mode} round 6, sparse")
+    check(not h._kv_queue, f"devsm {mode}: ops still queued")
+    check(all(seen[key] > 0 for key in ("captured", "queued_max", "kvfree_applied",
+                                        "transition_purged", "rebased_buffered",
+                                        "recycled_buffered")),
+          f"devsm {mode}: the script exercised too little: {seen}")
+    return seen
+
+
+def phase_devsm_ops(torch, engine_mod, dev):
+    out = {"phase": "devsm_op_script", "groups": 65_536, "peer_slots": 5}
+    for mode in ("sparse", "fused"):
+        t0 = time.perf_counter()
+        out[mode] = _devsm_op_script(torch, engine_mod, dev, mode)
+        out[f"{mode}_seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
 
 
 def _registers(log):
@@ -1568,6 +2229,22 @@ def _registers(log):
         elif "Used" in ln and "registers" in ln:
             n = int(ln.split("Used")[1].split("registers")[0])
             out[src] = max(out.get(src, 0), n)
+    return out
+
+
+def _frames(log):
+    """Per source, the largest stack frame and the most spill bytes (stores
+    plus loads) of any instance (``-Xptxas -v``)."""
+    out, src = {}, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif "stack frame" in ln and "spill" in ln:
+            parts = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            stack, spill = parts[0], parts[1] + parts[2]
+            cur = out.setdefault(src, {"stack_bytes": 0, "spill_bytes": 0})
+            cur["stack_bytes"] = max(cur["stack_bytes"], stack)
+            cur["spill_bytes"] = max(cur["spill_bytes"], spill)
     return out
 
 
@@ -1598,19 +2275,21 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "compiled": info.get("compiled"),
               "source_seconds": info.get("source_seconds"),
-              "registers_max": _registers(log),
-              "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "spill" in ln and not ln.strip().startswith("0 bytes")][:6]})
+              "registers_max": _registers(log), "frames": _frames(log)})
+        t0 = time.perf_counter()
         timings = phase_kernels(torch, ts, tk, dev)
+        emit({"phase": "kernels_seconds", "seconds": time.perf_counter() - t0})
         launches = dict.fromkeys(TPU_KERNELS, 0)
 
         def main_path(label, run, kernels):
             """One main path's run, its launch counts zeroed just before
             and read just after; each of ``kernels`` must have launched."""
             tk.reset_launch_counts()
+            t_path = time.perf_counter()
             out = run()
             counts = tk.launch_counts()
-            emit({"phase": "launches", "path": label, **counts})
+            emit({"phase": "launches", "path": label, **counts,
+                  "seconds": time.perf_counter() - t_path})
             for name in kernels:
                 check(counts[name] > 0, f"{name} never launched on the {label} path")
             for name in launches:
@@ -1634,6 +2313,10 @@ def main() -> int:
                   ("quorum_multiround", "read_plane"))
         main_path("read_op_script", lambda: phase_read_ops(torch, engine_mod, dev),
                   STEP_KERNELS + ("finish_hier", "telem_fold", "read_plane"))
+        main_path("rung4_devsm", lambda: phase_rung4_devsm(torch, engine_mod, tk, ts, dev),
+                  ("quorum_multiround", "kv_plane"))
+        main_path("devsm_op_script", lambda: phase_devsm_ops(torch, engine_mod, dev),
+                  STEP_KERNELS + ("finish_hier", "telem_fold", "kv_plane"))
         emit({"phase": "launches", "path": "all", **launches})
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")

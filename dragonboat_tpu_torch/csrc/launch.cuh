@@ -45,8 +45,9 @@ int launch_multiround(const State& st, const int32_t* ack,
                       const int8_t* vote_new, const int32_t* churn_map,
                       const int32_t* churn_term, const int32_t* churn_start,
                       const int32_t* churn_last, int n_records,
-                      const bool* tick_mask, int n_rounds, const Reads& rd,
-                      const Flags& fl, int flags, cudaStream_t cs) {
+                      const bool* tick_mask, int n_rounds,
+                      int32_t* commit_trace, const Reads& rd, const Flags& fl,
+                      int flags, cudaStream_t cs) {
   const bool track = flags & F_TRACK_CONTACT;
   const bool reset_telem = flags & F_RESET_TELEM;
   const bool reset_reads = flags & F_RESET_READS;
@@ -61,8 +62,8 @@ int launch_multiround(const State& st, const int32_t* ack,
                                   decltype(hier)::value, READS>;
             QS_LAUNCH(kern, grid_for(st.G), BLOCK, cs, st, ack, vote_new,
                       churn_map, churn_term, churn_start, churn_last,
-                      n_records, tick_mask, n_rounds, track, reset_telem,
-                      reset_reads, rd, fl);
+                      n_records, tick_mask, n_rounds, commit_trace, track,
+                      reset_telem, reset_reads, rd, fl);
           });
         });
       });
@@ -82,8 +83,8 @@ int launch_multiround_reads(const State& st, const int32_t* ack,
                             const int32_t* churn_start,
                             const int32_t* churn_last, int n_records,
                             const bool* tick_mask, int n_rounds,
-                            const Reads& rd, const Flags& fl, int flags,
-                            cudaStream_t cs);
+                            int32_t* commit_trace, const Reads& rd,
+                            const Flags& fl, int flags, cudaStream_t cs);
 
 // The read block of a launch that passed none (the plane off, no reset).
 inline Reads no_reads() { return Reads{}; }

@@ -775,7 +775,9 @@ static __global__ void churn_map_kernel(const int32_t* churn_row, int n_rounds,
 // K3: quorum_multiround — K rounds of (recycle, dense ingest, tail, the
 // read plane in the READS instances, masked tick) with the row held in
 // registers; flags OR over the rounds, the read egress sums counts and
-// takes the largest index.  A recycle keeps the hier geometry (a
+// takes the largest index.  Where ``commit_trace`` is given (the device
+// state machine runs after this launch, csrc/kv_plane.cu) each round's
+// post-tail watermark is stored to commit_trace[k * G + g].  A recycle keeps the hier geometry (a
 // same-geometry tenant); with reset_telem (has_telem or purge_telem) it
 // also zeroes the row's telem_prev_committed, which the fold after this
 // launch then reads.  It drops the old tenant's pending reads: in the
@@ -791,8 +793,9 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
                                   const int32_t* churn_start,
                                   const int32_t* churn_last, int n_records,
                                   const bool* tick_mask, int n_rounds,
-                                  bool track, bool reset_telem,
-                                  bool reset_reads, Reads rd, Flags f) {
+                                  int32_t* commit_trace, bool track,
+                                  bool reset_telem, bool reset_reads, Reads rd,
+                                  Flags f) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= s.G) return;
   Row<P> r;
@@ -822,6 +825,7 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
                                  VOTES ? vote_new + cells : nullptr, track);
     bool w, l, e0, h0, c0;
     finish<P, false, HIER>(r, s, g, w, l, e0, h0, c0);
+    if (commit_trace != nullptr) commit_trace[(size_t)k * s.G + g] = r.committed;
     won = won || w;
     lost = lost || l;
     if (READS) {

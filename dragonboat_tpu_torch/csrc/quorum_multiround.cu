@@ -8,7 +8,11 @@
 // quorum_multiround_reads.cu — see launch.cuh).  A pre-pass turns the
 // (K, C) recycle records into a (K, G) row -> record map; the main
 // launch then walks the K rounds per row with the row held in
-// registers, so the state is read once and written once per block.
+// registers, so the state is read once and written once per block.  With
+// the device state machine on, the launch also stores each round's
+// watermark into a (K, G) trace for csrc/kv_plane.cu, which runs after
+// it on the same stream (4 B a row and round), and the churn map stays
+// alive for that kernel's resets.
 // Bound: the (K, G, P) int32 ack block dominates — 160 B per row at
 // K = 8, P = 5 — on top of one read and write of the state (see
 // quorum.cuh).
@@ -20,8 +24,9 @@ extern "C" int qs_multiround(const qs::State* s, const int32_t* ack,
                              const int32_t* churn_start,
                              const int32_t* churn_last, int n_records,
                              const bool* tick_mask, int n_rounds,
-                             int32_t* churn_map, const qs::Reads* reads,
-                             const qs::Flags* f, int flags, void* stream) {
+                             int32_t* churn_map, int32_t* commit_trace,
+                             const qs::Reads* reads, const qs::Flags* f,
+                             int flags, void* stream) {
   const qs::State st = *s;
   const cudaStream_t cs = (cudaStream_t)stream;
   const bool churn = flags & qs::F_HAS_CHURN;
@@ -46,9 +51,10 @@ extern "C" int qs_multiround(const qs::State* s, const int32_t* ack,
   if (has_reads)
     return qs::launch_multiround_reads(st, ack, vote_new, churn_map,
                                        churn_term, churn_start, churn_last,
-                                       n_records, tick_mask, n_rounds, rd, *f,
-                                       flags, cs);
+                                       n_records, tick_mask, n_rounds,
+                                       commit_trace, rd, *f, flags, cs);
   return qs::launch_multiround<false>(st, ack, vote_new, churn_map, churn_term,
                                       churn_start, churn_last, n_records,
-                                      tick_mask, n_rounds, rd, *f, flags, cs);
+                                      tick_mask, n_rounds, commit_trace, rd,
+                                      *f, flags, cs);
 }

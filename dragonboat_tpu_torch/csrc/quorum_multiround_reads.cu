@@ -17,9 +17,9 @@ int qs::launch_multiround_reads(const State& st, const int32_t* ack,
                                 const int32_t* churn_start,
                                 const int32_t* churn_last, int n_records,
                                 const bool* tick_mask, int n_rounds,
-                                const Reads& rd, const Flags& fl, int flags,
-                                cudaStream_t cs) {
+                                int32_t* commit_trace, const Reads& rd,
+                                const Flags& fl, int flags, cudaStream_t cs) {
   return launch_multiround<true>(st, ack, vote_new, churn_map, churn_term,
                                  churn_start, churn_last, n_records, tick_mask,
-                                 n_rounds, rd, fl, flags, cs);
+                                 n_rounds, commit_trace, rd, fl, flags, cs);
 }

@@ -27,7 +27,7 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("quorum_step_dense.cu", "quorum_step_dense_reads.cu",
            "quorum_step.cu", "quorum_multiround.cu",
-           "quorum_multiround_reads.cu", "telem_fold.cu")
+           "quorum_multiround_reads.cu", "telem_fold.cu", "kv_plane.cu")
 HEADERS = ("quorum.cuh", "launch.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + [
@@ -71,6 +71,21 @@ class CReads(ctypes.Structure):
     ] + [("S", ctypes.c_int32)]
 
 
+class CKv(ctypes.Structure):
+    """``qs::Kv`` in ``csrc/kv_plane.cu``: the device state machine's
+    state fields, one launch's inputs, the per-round watermarks, K3's
+    churn map, the egress, and the widths."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "value", "ent_index", "ent_key", "ent_val", "in_idx", "in_key",
+            "in_val", "read_key", "commits", "churn_map", "read_val",
+            "read_idx", "applied",
+        )
+    ] + [(name, ctypes.c_int32) for name in ("G", "V", "E", "R", "K")]
+
+
 class CFlags(ctypes.Structure):
     """``qs::Flags`` in ``csrc/quorum.cuh``: the (G,) bool outputs."""
 
@@ -93,12 +108,15 @@ _SIGNATURES = {
                   _VP, _VP, _INT, _VP],
     # qs_multiround(state, ack, vote_new, churn_row, churn_term,
     #               churn_start, churn_last, n_records, tick_mask,
-    #               n_rounds, churn_map, reads, flags_out, flags, stream)
+    #               n_rounds, churn_map, commit_trace, reads, flags_out,
+    #               flags, stream)
     "qs_multiround": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT,
-                      _VP, _VP, _VP, _INT, _VP],
+                      _VP, _VP, _VP, _VP, _INT, _VP],
     # qs_telem(state, read_count, n_read_slots, kv_ent_index, n_kv_ents, k,
     #          out, cand, n_cand, flags, stream)
     "qs_telem": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP],
+    # qs_kv_plane(kv, flags, stream)
+    "qs_kv_plane": [_VP, _INT, _VP],
 }
 
 

@@ -26,22 +26,32 @@ The device boundary:
   (reads confirmed per slot, the index they were released at) the same
   way; ``StepResult.reads`` names them by cluster id, slot and absolute
   index;
+* a dispatch that ran the device state machine copies its kv egress (per
+  KV read slot the captured value and watermark, per row the entries
+  applied) the same way; ``StepResult.kv_reads`` names the captures by
+  cluster id, slot, value and absolute index;
 * ``device=None`` means CUDA; the engine raises when there is none.  The
   CPU runs the plain versions only when ``device="cpu"`` is asked for.
 
-The read, hier and telemetry planes sit behind one-way latches (the
-first read ingress, ``set_hier``, ``enable_telem``), as in the
-reference: until a latch flips, every dispatch runs without the plane
-and the row syncs skip its fields.  ReadIndex batches ride pending-read
-slots (``stage_read``, ``read_ack``): staged reads force the dense step
-(K1) or ride the K-round block (K3), which confirm them in the dispatch
-that advances commits.  Planes of later slices (devsm, observability,
-device profiling, warm-up compilation, ``sharding=``) raise
-:class:`NotImplementedError`.
+The read, devsm, hier and telemetry planes sit behind one-way latches
+(the first read ingress, the first kv ingress, ``set_hier``,
+``enable_telem``), as in the reference: until a latch flips, every
+dispatch runs without the plane and the row syncs skip its fields.
+ReadIndex batches ride pending-read slots (``stage_read``, ``read_ack``):
+staged reads force the dense step (K1) or ride the K-round block (K3),
+which confirm them in the dispatch that advances commits.  Device state
+machine ops (``stage_kv_ops``: SETs of a key slot at a log index) wait in
+a per-row entry buffer and apply in the dispatch whose commit passes
+them; KV reads (``stage_kv_read``) capture the post-apply value.  They
+force the dense step or ride the block, and every dispatch carries the
+plane while an entry sits buffered on the device.  Planes of later slices
+(observability, device profiling, warm-up compilation, ``sharding=``)
+raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -56,6 +66,7 @@ from .kernels import (
     TELEM_STATES,
     TELEM_TOPK,
     flag_block,
+    kv_block,
     quorum_multiround,
     quorum_step,
     quorum_step_dense,
@@ -69,6 +80,7 @@ from .state import (
     FOLLOWER,
     HIER_PLANE_FIELDS,
     KV_ENT_SLOTS,
+    KV_READ_SLOTS,
     KV_SLOTS,
     LEADER,
     READ_PLANE_FIELDS,
@@ -117,14 +129,16 @@ class StepResult:
     """Egress of one dispatch, in absolute-index / cluster-id terms
     (counterpart: ``dragonboat_tpu/ops/engine.py`` ``StepResult``).
 
-    ``commit`` and ``reads`` materialize lazily from the vectorized egress
-    arrays.  The devsm egress of the reference comes with its slice."""
+    ``commit``, ``reads`` and ``kv_reads`` materialize lazily from the
+    vectorized egress arrays."""
 
     __slots__ = (
         "won", "lost", "elect", "heartbeat", "demote",
         "_commit_cids", "_commit_abs", "_commit_dict",
         "read_cids", "read_slots", "read_index_abs", "read_counts",
         "_reads_list",
+        "kv_cids", "kv_slots", "kv_vals", "kv_index_abs",
+        "_kv_reads_list", "kv_applied_ops",
     )
 
     def __init__(self):
@@ -144,6 +158,15 @@ class StepResult:
         self.read_index_abs: Optional[np.ndarray] = None  # (n,) int64
         self.read_counts: Optional[np.ndarray] = None     # (n,) int64
         self._reads_list = None
+        # devsm KV read egress (None when the dispatch ran kv-free): per
+        # captured read slot, the cluster, the slot, the value and the
+        # ABSOLUTE watermark it reflects; and the ops applied this dispatch
+        self.kv_cids: Optional[np.ndarray] = None         # (n,) int64
+        self.kv_slots: Optional[np.ndarray] = None        # (n,) int64
+        self.kv_vals: Optional[np.ndarray] = None         # (n,) int64
+        self.kv_index_abs: Optional[np.ndarray] = None    # (n,) int64
+        self._kv_reads_list = None
+        self.kv_applied_ops: int = 0
 
     @property
     def commit(self) -> Dict[int, int]:
@@ -171,6 +194,20 @@ class StepResult:
                 ))
         return self._reads_list
 
+    @property
+    def kv_reads(self) -> List[Tuple[int, int, int, int]]:
+        """Captured devsm KV reads as ``(cluster_id, slot, value,
+        abs_index)`` tuples; built on first access."""
+        if self._kv_reads_list is None:
+            if self.kv_cids is None or not len(self.kv_cids):
+                self._kv_reads_list = []
+            else:
+                self._kv_reads_list = list(zip(
+                    self.kv_cids.tolist(), self.kv_slots.tolist(),
+                    self.kv_vals.tolist(), self.kv_index_abs.tolist(),
+                ))
+        return self._kv_reads_list
+
 
 class MultiRoundResult(StepResult):
     """Egress of one K-round fused dispatch (``step_rounds``); counterpart:
@@ -190,18 +227,17 @@ class MultiRoundResult(StepResult):
 
 class _RoundBuf:
     """One closed ingest round awaiting the fused multi-round dispatch
-    (counterpart: ``dragonboat_tpu/ops/engine.py`` ``_RoundBuf``, without
-    the devsm staging of a later slice): epoch-filtered ack arrays,
-    first-wins-deduped votes, the round's leader-recycle records,
-    optionally the precomputed flat (row·P + slot) cell vector, and the
-    round's staged ReadIndex batches and heartbeat echoes as flat arrays
-    (None = none)."""
+    (counterpart: ``dragonboat_tpu/ops/engine.py`` ``_RoundBuf``):
+    epoch-filtered ack arrays, first-wins-deduped votes, the round's
+    leader-recycle records, optionally the precomputed flat (row·P + slot)
+    cell vector, the round's staged ReadIndex batches and heartbeat echoes,
+    and its devsm entry ops and KV reads, as flat arrays (None = none)."""
 
     __slots__ = ("rows", "slots", "rels", "votes", "churn", "cells", "reads",
-                 "racks")
+                 "racks", "kvents", "kvreads")
 
     def __init__(self, rows, slots, rels, votes, churn, cells=None,
-                 reads=None, racks=None):
+                 reads=None, racks=None, kvents=None, kvreads=None):
         self.rows = rows
         self.slots = slots
         self.rels = rels
@@ -210,30 +246,37 @@ class _RoundBuf:
         self.cells = cells   # np (n,) int64 row*P+slot, or None
         self.reads = reads   # (rows, slots, rels, counts) int32 arrays
         self.racks = racks   # (rows, rslots, peers) int32 arrays
+        self.kvents = kvents    # (rows, slots, rels, keys, vals) int32 arrays
+        self.kvreads = kvreads  # (rows, rslots, keys) int32 arrays
 
 
 class _Egress:
-    """One launch's watermark, flag block, read egress block and telemetry
-    aggregate (the last two None without their plane) on their way to the
-    host.  On CUDA: pinned host tensors filled by ``non_blocking`` copies
-    enqueued on the launch's stream, plus the event :meth:`wait` blocks
-    on."""
+    """One launch's watermark, flag block, read egress block, kv egress
+    block and telemetry aggregate (the last three None without their
+    plane) on their way to the host.  On CUDA: pinned host tensors filled
+    by ``non_blocking`` copies enqueued on the launch's stream, plus the
+    event :meth:`wait` blocks on."""
 
-    __slots__ = ("committed", "flags", "reads", "telem", "event")
+    __slots__ = ("committed", "flags", "reads", "kv", "kv_r", "telem", "event")
 
     def __init__(self, out, device: torch.device):
         telem = None if out.telem is None else telem_block(out.telem)
         reads = None if out.read_done_count is None else read_block(out)
+        kv = None if out.kv_read_val is None else kv_block(out)
+        self.kv_r = None if kv is None else out.kv_read_val.shape[1]
         if device.type == "cuda":
             g = out.committed.shape[0]
             self.committed = torch.empty((g,), dtype=torch.int32, pin_memory=True)
             self.flags = torch.empty((5, g), dtype=torch.bool, pin_memory=True)
             self.committed.copy_(out.committed, non_blocking=True)
             self.flags.copy_(flag_block(out), non_blocking=True)
-            self.reads = self.telem = None
+            self.reads = self.kv = self.telem = None
             if reads is not None:
                 self.reads = torch.empty(reads.shape, dtype=torch.int32, pin_memory=True)
                 self.reads.copy_(reads, non_blocking=True)
+            if kv is not None:
+                self.kv = torch.empty(kv.shape, dtype=torch.int32, pin_memory=True)
+                self.kv.copy_(kv, non_blocking=True)
             if telem is not None:
                 self.telem = torch.empty(telem.shape, dtype=torch.int32, pin_memory=True)
                 self.telem.copy_(telem, non_blocking=True)
@@ -244,18 +287,27 @@ class _Egress:
             self.committed = out.committed.clone()
             self.flags = flag_block(out)
             self.reads = reads
+            self.kv = kv
             self.telem = telem
             self.event = None
 
     def wait(self):
         """(committed (G,) int32, flags (5, G) bool, the read egress
-        (2, G, S) int32 or None, the telemetry block (TELEM_HEAD + 2k,)
-        int32 or None) as numpy arrays."""
+        (2, G, S) int32 or None, the kv egress (read values (G, R), their
+        indexes (G, R), applied (G,)) int32 or None, the telemetry block
+        (TELEM_HEAD + 2k,) int32 or None) as numpy arrays."""
         if self.event is not None:
             self.event.synchronize()
         reads = None if self.reads is None else self.reads.numpy()
         telem = None if self.telem is None else self.telem.numpy()
-        return self.committed.numpy(), self.flags.numpy(), reads, telem
+        kv = None
+        if self.kv is not None:
+            g = self.committed.shape[0]
+            n = g * self.kv_r
+            flat = self.kv.numpy()
+            kv = (flat[:n].reshape(g, self.kv_r), flat[n:2 * n].reshape(g, self.kv_r),
+                  flat[2 * n:])
+        return self.committed.numpy(), self.flags.numpy(), reads, kv, telem
 
 
 class BatchedQuorumEngine:
@@ -282,6 +334,7 @@ class BatchedQuorumEngine:
         n_read_slots: int = READ_SLOTS,
         n_kv_slots: int = KV_SLOTS,
         n_kv_ents: int = KV_ENT_SLOTS,
+        n_kv_reads: int = KV_READ_SLOTS,
         device=None,
     ):
         if sharding is not None:
@@ -301,6 +354,7 @@ class BatchedQuorumEngine:
         self.n_read_slots = n_read_slots
         self.n_kv_slots = n_kv_slots
         self.n_kv_ents = n_kv_ents
+        self.n_kv_reads = n_kv_reads
         self.event_cap = event_cap
         #: dense-ingestion policy: collapse a round's acks into a (G,P)
         #: max matrix and dispatch the dense kernel.  "auto" picks per
@@ -371,6 +425,29 @@ class BatchedQuorumEngine:
         # never reset.  Until then the read arrays are all-zero on both
         # sides, the row syncs skip them and K3 skips their recycle reset.
         self._read_plane_used = False
+        # LATCH: set on the first devsm ingress (stage_kv_ops,
+        # stage_kv_read, kv_restore), never reset.  Until then the kv
+        # arrays are at their reset values on both sides, every dispatch
+        # runs has_kv=False, the row syncs skip the kv fields and K3 skips
+        # their recycle reset (purge_kv).
+        self._devsm_used = False
+        # host record of the rel index staged in each device entry-buffer
+        # slot (-1 = free): slot ``rel % E`` is reusable once the HARVESTED
+        # watermark has passed its tenant.  Ops whose slot is occupied
+        # queue per row in _kv_queue and drain, in log order, as harvests
+        # free slots.
+        self._kv_ent_rel = np.full((n_groups, n_kv_ents), -1, np.int64)
+        self._kv_queue: Dict[int, deque] = {}
+        # kv ops and reads of the CURRENT open round, epoch-tagged:
+        # (row, slot, rel, key, val, epoch) / (row, rslot, key, epoch)
+        self._kv_stage: List[Tuple[int, int, int, int, int, int]] = []
+        self._kv_read_stage: List[Tuple[int, int, int, int]] = []
+        # a KV read slot is busy from stage until the harvest that
+        # reports its capture (or a row transition drops it)
+        self._kv_read_busy = np.zeros((n_groups, n_kv_reads), bool)
+        #: called with the StepResult of EVERY harvest that carried kv
+        #: captures, internal harvests included
+        self.kv_egress_hook = None
         # LATCH: set by the first enabling set_hier, never reset.  Until
         # then near/sub_quorum are all-zero on both sides, every dispatch
         # runs has_hier=False and the row syncs skip the hier fields.
@@ -396,12 +473,6 @@ class BatchedQuorumEngine:
     warmup_devsm = _later("warmup_devsm", "warm-up compilation")
     warm_plan = _later("warm_plan", "warm-up compilation")
     lower_variant = _later("lower_variant", "the device profiling plane")
-    stage_kv_op = _later("stage_kv_op", "the device state machine")
-    stage_kv_ops = _later("stage_kv_ops", "the device state machine")
-    stage_kv_read = _later("stage_kv_read", "the device state machine")
-    kv_reads_free = _later("kv_reads_free", "the device state machine")
-    kv_values = _later("kv_values", "the device state machine")
-    kv_restore = _later("kv_restore", "the device state machine")
 
     # ------------------------------------------------------------------
     # device telemetry fold
@@ -473,6 +544,12 @@ class BatchedQuorumEngine:
         """True once the kernels are built (always on the CPU, which runs
         the plain versions and builds nothing)."""
         return self.device.type == "cpu" or _build.loaded()
+
+    @property
+    def kv_fused_ready(self) -> bool:
+        """True once the device state machine's kernel is built: it is
+        part of the one library, so this is :attr:`fused_ready`."""
+        return self.fused_ready
 
     @property
     def dev(self) -> QuorumState:
@@ -550,6 +627,9 @@ class BatchedQuorumEngine:
         if self._read_plane_used:  # else provably already clear
             self.mirror.clear_reads(row)
             self._reset_read_rows([row])
+        if self._devsm_used:  # a fresh registration starts from an empty KV
+            self.mirror.clear_kv(row)
+            self._reset_kv_rows([row])
         if self._hier_used:  # else provably already clear
             self.mirror.clear_hier(row)
         self._dirty.add(row)
@@ -562,11 +642,17 @@ class BatchedQuorumEngine:
         events are filtered in one vectorized pass at dispatch.  Pending
         READS die with the transition too (the scalar twin builds a fresh
         ``ReadIndex``): the slot bookkeeping and the mirror's read fields
-        reset here, and staged read/echo events fall to the epoch filter."""
+        reset here, and staged read/echo events fall to the epoch filter.
+        Devsm: BUFFERED entry ops die (they sit above the watermark, a log
+        suffix the next leadership may rewrite) while the applied values
+        stay; queued ops, staged slots and pending captures drop."""
         self._row_epoch[row] += 1
         self._reset_read_rows([row])
         if self._read_plane_used:  # else provably already clear
             self.mirror.clear_reads(row)
+        self._reset_kv_rows([row])
+        if self._devsm_used:  # else provably already clear
+            self.mirror.clear_kv_ents(row)
 
     def _drop_churn_records(self, row: int, drop_events: bool = False) -> None:
         """Strip every undispatched recycle record for ``row`` — from the
@@ -598,6 +684,7 @@ class BatchedQuorumEngine:
                 if b.votes:
                     b.votes = [v for v in b.votes if v[0] != row]
                 self._purge_block_reads(b, row)
+                self._purge_block_kv(b, row)
 
     @staticmethod
     def _purge_block_reads(b, row: int) -> None:
@@ -750,6 +837,17 @@ class BatchedQuorumEngine:
             # new floor only ever rewrites a release index UP, which
             # ReadIndex permits
             a["read_index"][row, :] = np.maximum(a["read_index"][row, :] - shift, 0)
+        if self._devsm_used:
+            # buffered entries shift with the base (they sit above the old
+            # watermark, the shift, so they stay >= 1); host slot records
+            # the shift proves applied free outright
+            ents = a["kv_ent_index"][row, :]
+            a["kv_ent_index"][row, :] = np.where(ents >= 0, ents - shift, -1)
+            kv = self._kv_ent_rel[row]
+            self._kv_ent_rel[row] = np.where((kv >= 0) & (kv - shift > 0), kv - shift, -1)
+            q = self._kv_queue.get(row)
+            if q:
+                self._kv_queue[row] = deque((rel - shift, key, val) for rel, key, val in q)
         self._dirty.add(row)
 
     # ------------------------------------------------------------------
@@ -1052,11 +1150,197 @@ class BatchedQuorumEngine:
             or self._read_echoes or self._read_echo_blocks
         )
 
+    # ------------------------------------------------------------------
+    # device state machine: entry ops and KV reads
+    # ------------------------------------------------------------------
+
+    def stage_kv_op(self, cluster_id: int, index: int, key: int, value: int) -> None:
+        """Stage one committed-entry ``SET key := value`` op for log
+        ``index`` (absolute): it applies on the device in the dispatch
+        whose commit watermark passes the index."""
+        self.stage_kv_ops(cluster_id, [index], [key], [value])
+
+    def stage_kv_ops(self, cluster_id: int, indexes, keys, values) -> bool:
+        """Vectorized entry-op staging for one group.  ``indexes`` must be
+        strictly increasing (log order); an op whose buffer slot (``rel %
+        E``) still holds an unapplied tenant queues on the host and drains,
+        in order, as harvested watermarks free slots.  Returns True when
+        everything staged at once (nothing queued for the row): a False
+        means a queued op may commit before it applies, so ``kv_value``
+        may trail the watermark until the queue drains."""
+        gi = self.groups[cluster_id]
+        row = gi.row
+        indexes = np.asarray(indexes, dtype=np.int64)
+        keys = np.asarray(keys, dtype=np.int64)
+        values = np.asarray(values, dtype=np.int64)
+        if not (indexes.shape == keys.shape == values.shape) or indexes.ndim != 1:
+            raise ValueError("stage_kv_ops arrays must share a 1-D shape")
+        if indexes.size == 0:
+            return True
+        rels = indexes - gi.base
+        if rels.min() < 1:
+            raise ValueError("stage_kv_ops index at or below the group base")
+        if rels.max() >= REBASE_THRESHOLD:
+            raise ValueError("stage_kv_ops index needs rebase")
+        if indexes.size > 1 and (np.diff(indexes) <= 0).any():
+            raise ValueError("stage_kv_ops indexes must be strictly increasing")
+        if keys.min() < 0 or keys.max() >= self.n_kv_slots:
+            raise ValueError("stage_kv_ops key slot out of range")
+        imin, imax = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+        if values.min() < imin or values.max() > imax:
+            raise ValueError("stage_kv_ops value outside int32")
+        self._devsm_used = True
+        q = self._kv_queue.setdefault(row, deque())
+        q.extend(zip(rels.tolist(), keys.tolist(), values.tolist()))
+        self._drain_kv_queue(row)
+        return row not in self._kv_queue
+
+    def _drain_kv_queue(self, row: int) -> None:
+        """Move queued ops into the open round while their slots are free,
+        in log order; stop at the first occupied slot (a later op must not
+        apply before an earlier one of the same key)."""
+        q = self._kv_queue.get(row)
+        if not q:
+            self._kv_queue.pop(row, None)
+            return
+        e = self.n_kv_ents
+        ep = int(self._row_epoch[row])
+        ent_rel = self._kv_ent_rel[row]
+        while q:
+            rel, key, val = q[0]
+            slot = rel % e
+            if ent_rel[slot] != -1:
+                break
+            ent_rel[slot] = rel
+            self._kv_stage.append((row, slot, rel, key, val, ep))
+            q.popleft()
+        if not q:
+            self._kv_queue.pop(row, None)
+
+    def _kv_free_applied(self) -> None:
+        """Free the entry slots whose tenants the HARVESTED watermark has
+        passed (the device freed them in the round they applied), then
+        drain queued ops into the open round.  Runs at every egress once
+        the devsm latch is up."""
+        mask = (self._kv_ent_rel >= 0) & (self._kv_ent_rel <= self._committed_cache[:, None])
+        if mask.any():
+            self._kv_ent_rel[mask] = -1
+        for row in list(self._kv_queue):
+            self._drain_kv_queue(row)
+
+    def stage_kv_read(self, cluster_id: int, key: int) -> int:
+        """Stage a device KV read of ``key`` for the group; returns the
+        read SLOT its capture egresses under (``StepResult.kv_reads``).
+        The value is captured in the read's round, after that round's
+        apply, with the watermark it reflects.  Raises ``RuntimeError``
+        when all R slots hold unharvested captures."""
+        gi = self.groups[cluster_id]
+        row = gi.row
+        if not 0 <= key < self.n_kv_slots:
+            raise ValueError(f"kv key slot {key} out of range")
+        free = np.nonzero(~self._kv_read_busy[row])[0]
+        if not free.size:
+            raise RuntimeError(f"no free devsm read slot for group {cluster_id}")
+        slot = int(free[0])
+        self._devsm_used = True
+        self._kv_read_busy[row, slot] = True
+        self._kv_read_stage.append((row, slot, key, int(self._row_epoch[row])))
+        return slot
+
+    def kv_reads_free(self, cluster_id: int) -> int:
+        """Free devsm read slots of the group right now."""
+        row = self.groups[cluster_id].row
+        return int((~self._kv_read_busy[row]).sum())
+
+    def kv_values(self, cluster_id: int) -> np.ndarray:
+        """The group's KV row (int64): pending mirror edits win over the
+        device, like every rare-path read."""
+        gi = self.groups[cluster_id]
+        return np.array(self._read("kv_value", gi.row), dtype=np.int64)
+
+    def kv_restore(self, cluster_id: int, values) -> None:
+        """Install a group's KV image (snapshot recover): a mirror row
+        write and a dirty upload, with the entry buffer cleared (the image
+        IS the applied state)."""
+        gi = self.groups[cluster_id]
+        row = gi.row
+        values = np.asarray(values, dtype=np.int64)
+        if values.shape != (self.n_kv_slots,):
+            raise ValueError(
+                f"kv_restore expects shape ({self.n_kv_slots},), got {values.shape}"
+            )
+        self._devsm_used = True
+        self._sync_row(row)
+        self.mirror.arrays["kv_value"][row, :] = values.astype(np.int32)
+        self.mirror.clear_kv_ents(row)
+        self._reset_kv_rows([row])
+        self._dirty.add(row)
+
+    def _reset_kv_rows(self, rows) -> None:
+        """Drop the rows' devsm host bookkeeping (transition purge): queued
+        ops die, staged slots free, captures are abandoned; a no-op until
+        the plane is used.  The device side is cleared by the caller's
+        mirror write or by the in-program recycle."""
+        if not self._devsm_used:
+            return
+        self._kv_ent_rel[rows] = -1
+        self._kv_read_busy[rows] = False
+        for r in np.atleast_1d(np.asarray(rows, dtype=np.int64)):
+            self._kv_queue.pop(int(r), None)
+
+    def _gather_kv(self):
+        """The open round's devsm buffers as flat int32 arrays with
+        stale-epoch events filtered; clears them.  Drains the queues first,
+        so ops the last harvest unblocked ride this round.  Returns
+        ``(kvents, kvreads)``, each a tuple of arrays or None."""
+        if self._kv_queue:
+            for row in list(self._kv_queue):
+                self._drain_kv_queue(row)
+        kvents = kvreads = None
+        if self._kv_stage:
+            cols = np.array(self._kv_stage, dtype=np.int64)
+            rows = cols[:, 0].astype(np.int32)
+            keep = cols[:, 5].astype(np.int32) == self._row_epoch[rows]
+            if keep.any():
+                kvents = tuple(cols[keep, i].astype(np.int32) for i in range(5))
+            self._kv_stage = []
+        if self._kv_read_stage:
+            cols = np.array(self._kv_read_stage, dtype=np.int64)
+            rows = cols[:, 0].astype(np.int32)
+            keep = cols[:, 3].astype(np.int32) == self._row_epoch[rows]
+            if keep.any():
+                kvreads = tuple(cols[keep, i].astype(np.int32) for i in range(3))
+            self._kv_read_stage = []
+        return kvents, kvreads
+
+    def _kv_pending(self) -> bool:
+        return bool(self._kv_stage or self._kv_read_stage or self._kv_queue)
+
+    def _kv_ents_buffered(self) -> bool:
+        """Whether an entry slot holds an op the harvested watermark has
+        not passed: then every dispatch carries the plane, or an entry
+        whose commit lands in a kv-free dispatch would never apply."""
+        return self._devsm_used and bool((self._kv_ent_rel >= 0).any())
+
+    @staticmethod
+    def _purge_block_kv(b, row: int) -> None:
+        """Drop ``row``'s staged devsm ops and reads from one sealed round
+        block (the ``_purge_block_reads`` rationale: an old tenant's
+        capture would egress under the new one)."""
+        if b.kvents is not None and b.kvents[0].size:
+            keep = b.kvents[0] != row
+            if not keep.all():
+                b.kvents = tuple(a[keep] for a in b.kvents)
+        if b.kvreads is not None and b.kvreads[0].size:
+            keep = b.kvreads[0] != row
+            if not keep.all():
+                b.kvreads = tuple(a[keep] for a in b.kvreads)
+
     def _pending_events(self) -> bool:
         """Whether the open round holds anything to close."""
         return bool(
             self._acks or self._ack_blocks or self._votes or self._churn
-            or self._reads_pending()
+            or self._reads_pending() or self._kv_pending()
         )
 
     # ------------------------------------------------------------------
@@ -1078,8 +1362,10 @@ class BatchedQuorumEngine:
             votes = []
         rows, slots, rels = self._gather_acks()
         reads, racks = self._gather_reads()
+        kvents, kvreads = self._gather_kv()
         self._round_blocks.append(
-            _RoundBuf(rows, slots, rels, votes, self._churn, reads=reads, racks=racks)
+            _RoundBuf(rows, slots, rels, votes, self._churn, reads=reads,
+                      racks=racks, kvents=kvents, kvreads=kvreads)
         )
         self._churn = []
         self._churn_rows = set()
@@ -1163,14 +1449,17 @@ class BatchedQuorumEngine:
         self._purge_row_events(row)
         # old-tenant READS die entirely, including batches sealed into
         # closed pre-recycle rounds: a read confirmed there would egress
-        # after the recycle, attributed to the row's final tenant
+        # after the recycle, attributed to the row's final tenant; its
+        # devsm ops and reads die the same way
         for b in self._round_blocks:
             self._purge_block_reads(b, row)
+            self._purge_block_kv(b, row)
+        self._reset_kv_rows([row])
         # mirror coherence WITHOUT dirtying the row: the device applies the
         # identical reset in-program
         self.mirror.recycle_row(
             row, term, term_start, last_index,
-            clear_reads=self._read_plane_used, clear_kv=False,
+            clear_reads=self._read_plane_used, clear_kv=self._devsm_used,
             clear_telem=self._telem_used,
         )
         self._committed_cache[row] = 0
@@ -1239,7 +1528,7 @@ class BatchedQuorumEngine:
             return None
         egress, prev_committed, row_cid, row_base, n_rounds = self._inflight
         self._inflight = None
-        committed, flags, reads, telem = egress.wait()
+        committed, flags, reads, kv, telem = egress.wait()
         if telem is not None:
             self._stage_telem(telem, row_cid, n_rounds)
         res = MultiRoundResult(n_rounds)
@@ -1253,10 +1542,22 @@ class BatchedQuorumEngine:
             # mirror watermark until THEIR block lands
             rows = np.fromiter(self._churn_pending, dtype=np.int64)
             self._committed_cache[rows] = self.mirror.arrays["committed"][rows]
+        self._kv_egress(res, kv, row_cid, row_base)
         res.commit_rows = self._translate_egress(
             res, committed, prev_committed, row_cid, row_base, flags
         )
         return res
+
+    def _kv_egress(self, res, kv, row_cid, row_base) -> None:
+        """The devsm part of an egress, after the committed cache is
+        refreshed: translate the captures, call the hook, then free the
+        applied entry slots."""
+        if kv is not None:
+            self._translate_kv(res, kv, row_cid, row_base)
+            if self.kv_egress_hook is not None:
+                self.kv_egress_hook(res)
+        if self._devsm_used:
+            self._kv_free_applied()
 
     _FLAG_NAMES = ("won", "lost", "elect", "heartbeat", "demote")
 
@@ -1279,6 +1580,25 @@ class BatchedQuorumEngine:
                 cids = row_cid[idx]
                 getattr(res, name).extend(cids[cids >= 0].tolist())
         return changed
+
+    def _translate_kv(self, res, kv, row_cid, row_base) -> None:
+        """Vectorized devsm egress translation: the (G,R) capture block
+        becomes flat (cid, slot, value, abs index) vectors (dead rows
+        dropped; ``StepResult.kv_reads`` builds the tuples), captured read
+        slots free, and the dispatch's applied total lands on the result."""
+        kvv, kvi, kva = kv
+        res.kv_applied_ops = int(kva.sum())
+        rows, slots = np.nonzero(kvi >= 0)
+        if not rows.size:
+            return
+        self._kv_read_busy[rows, slots] = False
+        cids = row_cid[rows]
+        live = cids >= 0
+        rows, slots = rows[live], slots[live]
+        res.kv_cids = cids[live]
+        res.kv_slots = slots.astype(np.int64)
+        res.kv_vals = kvv[rows, slots].astype(np.int64)
+        res.kv_index_abs = row_base[rows] + kvi[rows, slots]
 
     @staticmethod
     def _translate_reads(res, reads, row_cid, row_base) -> None:
@@ -1319,9 +1639,12 @@ class BatchedQuorumEngine:
     def _stage_multiround(self, blocks: List[_RoundBuf], tick_mask: np.ndarray):
         """Stack K closed rounds into host tensors: the (K,G,P) ack block
         with the ``-1`` sentinel, (K,G,P) votes, (K,C) churn records, the
-        tick mask and, where a round staged reads or echoes, the (K,G,S)
-        stage index (``-1`` = none) and count and the (K,G,S,P) echoes.
-        Returns (tensors, has_votes, has_churn, has_reads)."""
+        tick mask; where a round staged reads or echoes, the (K,G,S)
+        stage index (``-1`` = none) and count and the (K,G,S,P) echoes;
+        where a round staged kv ops or reads, or an entry sits buffered,
+        the (K,G,E) entry index (``-1`` = none), key and value and the
+        (K,G,R) read keys (``-1`` = none).  Returns (tensors, has_votes,
+        has_churn, has_reads, has_kv)."""
         k = len(blocks)
         g, p = self.n_groups, self.n_peers
         ack_t, ack_max = self._host((k, g, p), np.int32, fill=-1)
@@ -1372,14 +1695,45 @@ class BatchedQuorumEngine:
                     rr, sl, pe = b.racks
                     echo[r, rr, sl, pe] = True
             tensors += (idx_t, cnt_t, echo_t)
-        return tensors, has_votes, has_churn, has_reads
+        has_kv = any(
+            b.kvents is not None or b.kvreads is not None for b in blocks
+        ) or self._kv_ents_buffered()  # the plane runs while ops sit buffered
+        if has_kv:
+            tensors += self._stage_kv((k,), [(b.kvents, b.kvreads) for b in blocks])
+        return tensors, has_votes, has_churn, has_reads, has_kv
+
+    def _stage_kv(self, lead, rounds) -> tuple:
+        """The devsm inputs of a dispatch as host tensors: (…,G,E) entry
+        index (``-1`` = none), key and value and (…,G,R) read keys (``-1``
+        = none), ``lead`` = (K,) for a block or () for one round;
+        ``rounds`` holds each round's ``(kvents, kvreads)``."""
+        g, e, rk = self.n_groups, self.n_kv_ents, self.n_kv_reads
+        ei_t, kv_ei = self._host(lead + (g, e), np.int32, fill=-1)
+        ek_t, kv_ek = self._host(lead + (g, e), np.int32, fill=0)
+        ev_t, kv_ev = self._host(lead + (g, e), np.int32, fill=0)
+        rk_t, kv_rk = self._host(lead + (g, rk), np.int32, fill=-1)
+        for r, (kvents, kvreads) in enumerate(rounds):
+            at = (r,) if lead else ()
+            if kvents is not None and kvents[0].size:
+                rr, sl, rel, key, val = kvents
+                kv_ei[at + (rr, sl)] = rel
+                kv_ek[at + (rr, sl)] = key
+                kv_ev[at + (rr, sl)] = val
+            if kvreads is not None and kvreads[0].size:
+                rr, sl, key = kvreads
+                kv_rk[at + (rr, sl)] = key
+        return ei_t, ek_t, ev_t, rk_t
 
     def _upload(self, tensors) -> tuple:
         return tuple(self._to_device(t) for t in tensors)
 
-    def _launch_multiround(self, args, do_tick, has_votes, has_churn, has_reads):
+    def _launch_multiround(self, args, do_tick, has_votes, has_churn, has_reads,
+                           has_kv):
+        head = 7 + (3 if has_reads else 0)
+        reads = args[7:head] if has_reads else (None, None, None)
+        kv = args[head:head + 4] if has_kv else (None, None, None, None)
         return quorum_multiround(
-            self._dev, *args,
+            self._dev, *args[:7], *reads, *kv,
             do_tick=do_tick,
             track_contact=self.device_ticks or do_tick,
             has_votes=has_votes,
@@ -1388,6 +1742,9 @@ class BatchedQuorumEngine:
             # a never-used read plane is all-zero: its recycle reset is
             # skipped (the reference compiles it out)
             purge_reads=self._read_plane_used and has_churn,
+            has_kv=has_kv,
+            # the devsm twin of purge_reads
+            purge_kv=self._devsm_used and has_churn,
             has_hier=self._hier_used,
             has_telem=self._telem_used,
             purge_telem=self._telem_used and has_churn,
@@ -1471,18 +1828,20 @@ class BatchedQuorumEngine:
         self._synced.update(todo)
 
     _READ_KEYS = READ_PLANE_FIELDS
+    _KV_KEYS = DEVSM_PLANE_FIELDS
     _HIER_KEYS = HIER_PLANE_FIELDS
     _TELEM_KEYS = TELEM_PLANE_FIELDS
 
     def _sync_keys(self) -> List[str]:
         """Mirror fields the rare-path row syncs move between host and
-        device: the quorum plane, and the read, hier and telem fields once
-        their latches are up (before that both sides are all-zero by
-        construction).  The devsm plane is never used in the port yet, so
-        it stays at its reset values on both sides."""
-        skip = DEVSM_PLANE_FIELDS
+        device: the quorum plane, and the read, devsm, hier and telem
+        fields once their latches are up (before that both sides are at
+        their reset values by construction)."""
+        skip = ()
         if not self._read_plane_used:
             skip += self._READ_KEYS
+        if not self._devsm_used:
+            skip += self._KV_KEYS
         if not self._hier_used:
             skip += self._HIER_KEYS
         if not self._telem_used:
@@ -1532,11 +1891,15 @@ class BatchedQuorumEngine:
         prev_committed = self._committed_cache
         ack_g, ack_p, ack_v = self._gather_acks()
         reads, racks = self._gather_reads()
+        kvents, kvreads = self._gather_kv()
         has_reads = reads is not None or racks is not None
+        # the plane also runs while an entry sits buffered: its commit may
+        # land in this otherwise kv-free dispatch
+        has_kv = kvents is not None or kvreads is not None or self._kv_ents_buffered()
         # dense mode collapses ANY number of acks/votes into (G,P)
-        # matrices — no cap, no chunk loop.  The read plane exists only on
-        # the dense kernel, so pending reads force it.
-        if has_reads or self.dense_ingest is True or (
+        # matrices — no cap, no chunk loop.  The read plane and the device
+        # state machine exist only on the dense kernel, so they force it.
+        if has_reads or has_kv or self.dense_ingest is True or (
             self.dense_ingest == "auto"
             and (
                 ack_g.size >= self._dense_threshold
@@ -1545,7 +1908,8 @@ class BatchedQuorumEngine:
             )
         ):
             out = self._dispatch_dense(
-                ack_g, ack_p, ack_v, self._votes, do_tick, reads, racks
+                ack_g, ack_p, ack_v, self._votes, do_tick, reads, racks,
+                kvents, kvreads, has_kv,
             )
         else:
             pos = 0
@@ -1566,12 +1930,13 @@ class BatchedQuorumEngine:
         self._voted_cells.clear()
         self._synced.clear()
         res = StepResult()
-        committed, flags, done, telem = self._enqueue_egress(out).wait()
+        committed, flags, done, kv, telem = self._enqueue_egress(out).wait()
         if telem is not None:
             self._stage_telem(telem, self._row_cid.copy(), 1)
         if done is not None:
             self._translate_reads(res, done, self._row_cid, self._row_base)
         self._committed_cache = np.array(committed, dtype=np.int32)
+        self._kv_egress(res, kv, self._row_cid, self._row_base)
         self._translate_egress(
             res, self._committed_cache, prev_committed, self._row_cid,
             self._row_base, flags,
@@ -1639,18 +2004,22 @@ class BatchedQuorumEngine:
             has_hier=self._hier_used,
             has_telem=self._telem_used,
             telem_k=self.n_telem_topk,
-            # an occupancy hint for the fold only: this path carries no
-            # read events
+            # occupancy hints for the fold only: this path carries no read
+            # or kv events
             has_reads=self._read_plane_used,
+            has_kv=self._devsm_used,
         )
         return out
 
     def _dispatch_dense(self, ag, ap, av, votes, do_tick: bool, reads=None,
-                        racks=None):
+                        racks=None, kvents=None, kvreads=None, has_kv=None):
         """Aggregate a round's events into (G,P) matrices and launch the
         dense step; ``reads`` / ``racks`` are the round's gathered read
         buffers (``_gather_reads``), which become the (G,S) stage index
-        and count and the (G,S,P) echoes of the read plane."""
+        and count and the (G,S,P) echoes of the read plane, and
+        ``kvents`` / ``kvreads`` its devsm buffers (``_gather_kv``), which
+        become the (G,E) and (G,R) planes of the device state machine
+        (``has_kv`` defaults to their presence)."""
         g, p = self.n_groups, self.n_peers
         max_t, ack_max = self._host((g, p), np.int32, fill=0)
         touch_t, touched = self._host((g, p), np.bool_, fill=False)
@@ -1680,13 +2049,20 @@ class BatchedQuorumEngine:
                 rr, sl, pe = racks
                 echo[rr, sl, pe] = True
             host += [idx_t, cnt_t, echo_t]
+        if has_kv is None:
+            has_kv = kvents is not None or kvreads is not None
+        if has_kv:
+            host += list(self._stage_kv((), [(kvents, kvreads)]))
         args = self._upload(host)
+        reads_args = args[3:6] if has_reads else (None, None, None)
+        kv_args = args[len(args) - 4:] if has_kv else (None, None, None, None)
         return quorum_step_dense(
-            self._dev, *args,
+            self._dev, *args[:3], *reads_args, *kv_args,
             do_tick=do_tick,
             track_contact=self.device_ticks or do_tick,
             has_votes=bool(votes),
             has_reads=has_reads,
+            has_kv=has_kv,
             has_hier=self._hier_used,
             has_telem=self._telem_used,
             telem_k=self.n_telem_topk,

@@ -13,10 +13,12 @@ tensor.  With ``has_telem`` a step's ``StepOutputs.telem`` is the
 :class:`TelemAggregate` of the fold run after it, whose fields are views
 of one fixed-size int32 block (:func:`telem_block`).  With ``has_reads``
 the dense and K-round steps run the device read plane (:func:`_read_plane`)
-and return its (G,S) ``read_done_count`` / ``read_done_index``; on the
-sparse step ``has_reads`` only tells the fold to count read slots, as in
-the reference (the engine forces the dense step whenever reads are
-staged).
+and return its (G,S) ``read_done_count`` / ``read_done_index``; with
+``has_kv`` they run the device state machine (:func:`_kv_plane`) and
+return its (G,R) ``kv_read_val`` / ``kv_read_index`` and (G,)
+``kv_applied``.  On the sparse step ``has_reads`` and ``has_kv`` only tell
+the fold to count read and entry slots, as in the reference (the engine
+forces the dense step whenever reads or kv events are staged).
 
 Routing is by the device the state lies on, and by nothing else:
 
@@ -28,7 +30,10 @@ Routing is by the device the state lies on, and by nothing else:
 Each wrapper counts its kernel launches (:func:`launch_counts`); a
 launch of a step kernel's ``has_hier`` instance also counts under
 ``finish_hier``, the hier commit branch it carries, and a launch of a
-``has_reads`` instance under ``read_plane``.
+``has_reads`` instance under ``read_plane``.  The device state machine is
+a kernel of its own (``csrc/kv_plane.cu``, counter ``kv_plane``), launched
+after K1 or K3 on the same stream; a K-round block passes it each
+round's watermark through a (K, G) trace that K3 writes.
 
 Contract on event indexes: the sparse step drops events whose row or slot
 lies outside ``[0, G) x [0, P)``.  The JAX step routes invalid events to
@@ -70,13 +75,21 @@ MAX_KERNEL_PEERS = 32
 # The most pending-read slots (S) the CUDA read plane takes
 # (QS_MAX_READ_SLOTS in csrc/quorum.cuh): a row's slots live in registers.
 MAX_KERNEL_READ_SLOTS = 8
+# The widest entry buffer (E), read-slot axis (R) and value row (V) the
+# CUDA device state machine takes (QS_MAX_KV_* in csrc/kv_plane.cu): a
+# row's entries and read captures live in registers.
+MAX_KERNEL_KV_ENTS = 32
+MAX_KERNEL_KV_READS = 8
+MAX_KERNEL_KV_SLOTS = 1024
 
 # Launch-flag bits of csrc/quorum.cuh.
 _F_DO_TICK, _F_TRACK_CONTACT, _F_HAS_VOTES, _F_HAS_CHURN = 1, 2, 4, 8
 _F_HAS_HIER, _F_RESET_TELEM = 16, 32
 _F_HAS_READS, _F_RESET_READS = 64, 128
-# ... and of csrc/telem_fold.cu.
+# ... of csrc/telem_fold.cu ...
 _F_COUNT_READS, _F_COUNT_KV = 1, 2
+# ... and of csrc/kv_plane.cu.
+_KV_PLANE, _KV_CARRY, _KV_RESET = 1, 2, 4
 
 # Optimal compare-exchange networks (Knuth TAOCP v3 §5.3.4) per width;
 # each pair (i, j) with i < j exchanges so the LARGER value lands at i —
@@ -98,7 +111,7 @@ _SORT_NETWORKS = {
 }
 
 _LAUNCHES = {"quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
-             "telem_fold": 0, "finish_hier": 0, "read_plane": 0}
+             "telem_fold": 0, "finish_hier": 0, "read_plane": 0, "kv_plane": 0}
 
 
 def launch_counts() -> dict:
@@ -137,8 +150,10 @@ class StepOutputs(NamedTuple):
     ``has_reads`` the read egress: per pending-read slot, the reads
     confirmed this dispatch and the rel index they were released at (-1 =
     none); a K-round block sums the counts and takes the largest index
-    over its rounds.  The devsm outputs belong to a later slice and stay
-    None."""
+    over its rounds.  With ``has_kv`` the devsm egress: per KV read slot
+    the captured value and the watermark it reflects (-1 = no capture; a
+    K-round block keeps the round whose index is >= 0, the last such), and
+    per row the entries applied (summed over a block's rounds)."""
 
     state: QuorumState
     committed: torch.Tensor    # (G,) i32 rel — post-step commit watermark
@@ -147,19 +162,10 @@ class StepOutputs(NamedTuple):
     flags: TickFlags
     read_done_count: Optional[torch.Tensor] = None  # (G,S) i32
     read_done_index: Optional[torch.Tensor] = None  # (G,S) i32 rel, -1 = none
-    kv_read_val: Optional[torch.Tensor] = None
-    kv_read_index: Optional[torch.Tensor] = None
-    kv_applied: Optional[torch.Tensor] = None
+    kv_read_val: Optional[torch.Tensor] = None     # (G,R) i32
+    kv_read_index: Optional[torch.Tensor] = None   # (G,R) i32 rel, -1 = none
+    kv_applied: Optional[torch.Tensor] = None      # (G,) i32
     telem: Optional[TelemAggregate] = None
-
-
-def _off_slice(has_kv=False):
-    """Raise for a plane the port does not carry yet (ROADMAP.md queue A)."""
-    if has_kv:
-        raise NotImplementedError(
-            "has_kv: the device state machine (devsm) plane is ported in a "
-            "later slice (ROADMAP.md queue A)"
-        )
 
 
 def _scalar(value: int, like: torch.Tensor) -> torch.Tensor:
@@ -348,6 +354,48 @@ def _read_plane(st: QuorumState, stage_idx, stage_cnt, ack):
     return st, done_count, done_index
 
 
+def _one_hot(key: torch.Tensor, v: int) -> torch.Tensor:
+    """``jax.nn.one_hot(key, v, dtype=bool)``: all-zero where ``key`` lies
+    outside [0, v)."""
+    return key[..., None] == torch.arange(v, dtype=I32, device=key.device)
+
+
+def _kv_plane(st: QuorumState, ent_idx, ent_key, ent_val, read_key):
+    """One round of the device state machine: stage, apply, read.
+    ``ent_idx`` (G,E) i32 is each buffer slot's staged op log index (-1 =
+    no stage), ``ent_key`` / ``ent_val`` its key slot and value,
+    ``read_key`` (G,R) the staged KV read keys (-1 = no read).  Every
+    buffered entry at or below the commit watermark applies and frees its
+    slot: the value of a key becomes that of its highest-index ready entry
+    (the sum of the values where ready entries share that index).  Reads
+    capture the post-apply value and the watermark.  Returns ``(state,
+    read_val, read_idx, applied)``."""
+    staged = ent_idx >= 0
+    b_idx = torch.where(staged, ent_idx, st.kv_ent_index)
+    b_key = torch.where(staged, ent_key, st.kv_ent_key)
+    b_val = torch.where(staged, ent_val, st.kv_ent_val)
+    v = st.kv_value.shape[1]
+    ready = (b_idx >= 0) & (b_idx <= st.committed[:, None])      # (G,E)
+    key_oh = _one_hot(b_key, v)                                  # (G,E,V)
+    sel = ready[:, :, None] & key_oh
+    masked_idx = torch.where(sel, b_idx[:, :, None], -1)         # (G,E,V)
+    win_idx = masked_idx.max(dim=1).values                       # (G,V)
+    is_win = sel & (masked_idx == win_idx[:, None, :]) & (win_idx[:, None, :] >= 0)
+    new_val = torch.where(is_win, b_val[:, :, None], 0).sum(1, dtype=I32)
+    kv_value = torch.where(win_idx >= 0, new_val, st.kv_value)   # (G,V)
+    applied = ready.sum(1, dtype=I32)                            # (G,)
+    b_idx = torch.where(ready, -1, b_idx)                        # free applied slots
+    st = st._replace(
+        kv_value=kv_value, kv_ent_index=b_idx, kv_ent_key=b_key, kv_ent_val=b_val,
+    )
+    has_read = read_key >= 0                                     # (G,R)
+    read_oh = _one_hot(read_key, v)                              # (G,R,V)
+    read_val = torch.where(read_oh, kv_value[:, None, :], 0).sum(2, dtype=I32)
+    read_val = torch.where(has_read, read_val, 0)
+    read_idx = torch.where(has_read, st.committed[:, None], -1)
+    return st, read_val, read_idx, applied
+
+
 def _finish_step(st, match, next_, active, votes, election_tick, last_index,
                  do_tick: bool, has_hier: bool = False) -> StepOutputs:
     """Tally/commit/tick tail shared by the sparse and dense steps."""
@@ -396,9 +444,8 @@ def quorum_step_impl(
 ) -> StepOutputs:
     """One sparse round: scatter-max ack ingest, contact, first-wins votes,
     then the tail, then the telemetry fold where ``has_telem`` says so
-    (``has_reads`` only makes it count read slots).  Functional; see the
-    module docstring on indexes."""
-    _off_slice(has_kv)
+    (``has_reads`` and ``has_kv`` only make it count read and entry
+    slots).  Functional; see the module docstring on indexes."""
     g_total, p = st.match.shape
     ag, ap = ack_g.long(), ack_p.long()
     row_ok = ack_valid & (ag >= 0) & (ag < g_total)
@@ -461,8 +508,9 @@ def quorum_step_dense_impl(
     0 in untouched cells, ``vote_new`` first-wins-deduped votes.  With
     ``has_reads`` the read plane runs after the tail (and the tick), on
     ``read_stage_idx`` (G,S), ``read_stage_cnt`` (G,S) and ``read_ack``
-    (G,S,P)."""
-    _off_slice(has_kv)
+    (G,S,P); with ``has_kv`` the device state machine runs after it, on
+    ``kv_ent_idx`` / ``kv_ent_key`` / ``kv_ent_val`` (G,E) and
+    ``kv_read_key`` (G,R)."""
     match = torch.maximum(st.match, torch.where(ack_touched, ack_max, 0))
     next_ = torch.maximum(st.next, match + 1)
     active = st.active | ack_touched
@@ -490,6 +538,15 @@ def quorum_step_dense_impl(
         out = out._replace(
             state=rst, read_done_count=done_cnt, read_done_index=done_idx
         )
+    if has_kv:
+        # after the commit (an entry committing this round applies this
+        # round) and after the read plane
+        kst, kv_rv, kv_ri, kv_ap = _kv_plane(
+            out.state, kv_ent_idx, kv_ent_key, kv_ent_val, kv_read_key
+        )
+        out = out._replace(
+            state=kst, kv_read_val=kv_rv, kv_read_index=kv_ri, kv_applied=kv_ap,
+        )
     if has_telem:
         # the fold LAST: it describes the state this dispatch leaves
         tst, agg = telem_fold_impl(
@@ -501,14 +558,15 @@ def quorum_step_dense_impl(
 
 def _apply_recycle(st: QuorumState, row, term, start, last,
                    reset_reads: bool = True,
+                   reset_kv: bool = True,
                    reset_telem: bool = True) -> QuorumState:
     """Masked leader-recycle row reset (twin: ``remove_group`` +
     ``add_group`` + ``set_leader`` for a same-geometry tenant).  Rows
     outside [0, G) are padding and dropped.  Membership and the hier
-    geometry stay.  ``reset_reads`` drops the old tenant's pending reads
-    and ``reset_telem`` zeroes the fresh tenant's stall horizon; the
-    devsm reset of the reference belongs to a later slice (that plane
-    stays at its reset values in the port)."""
+    geometry stay.  ``reset_reads`` drops the old tenant's pending reads,
+    ``reset_kv`` gives the fresh tenant an empty device state machine
+    (values 0, entry buffer free) and ``reset_telem`` zeroes its stall
+    horizon."""
     g, p = st.match.shape
     keep = (row >= 0) & (row < g)
     rows = row[keep].long()
@@ -529,6 +587,13 @@ def _apply_recycle(st: QuorumState, row, term, start, last,
             read_count=put(st.read_count, 0),
             read_acks=put(st.read_acks, False),
         )
+    if reset_kv:
+        st = st._replace(
+            kv_value=put(st.kv_value, 0),
+            kv_ent_index=put(st.kv_ent_index, -1),
+            kv_ent_key=put(st.kv_ent_key, 0),
+            kv_ent_val=put(st.kv_ent_val, 0),
+        )
     if reset_telem:
         st = st._replace(
             telem_prev_committed=put(st.telem_prev_committed, 0)
@@ -547,14 +612,6 @@ def _apply_recycle(st: QuorumState, row, term, start, last,
         active=put(st.active, False),
         votes=put(st.votes, VOTE_NONE),
     )
-
-
-def _check_purge(has_churn, purge_kv):
-    if purge_kv and has_churn:
-        raise NotImplementedError(
-            "purge_kv: the devsm plane's recycle reset is ported in a later "
-            "slice (ROADMAP.md queue A)"
-        )
 
 
 def quorum_multiround_impl(
@@ -584,19 +641,20 @@ def quorum_multiround_impl(
     """K engine rounds, including in-program churn: per round (1) that
     round's row recycles, (2) the dense ingest of its ``-1``-sentinel ack
     block and votes, (3) tally/commit, (4) with ``has_reads`` the read
-    plane on that round's (K,G,S) / (K,G,S,P) read inputs, then the tick
-    where ``tick_mask`` says so.  Flags OR over the rounds; the final
-    watermark is the egress; the read egress sums the counts and takes
-    the largest index over the rounds.  With ``has_telem`` the fold runs
-    ONCE, on the block's final state.
+    plane on that round's (K,G,S) / (K,G,S,P) read inputs, (5) with
+    ``has_kv`` the device state machine on its (K,G,E) / (K,G,R) inputs,
+    then the tick where ``tick_mask`` says so.  Flags OR over the rounds;
+    the final watermark is the egress; the read egress sums the counts
+    and takes the largest index over the rounds; the kv egress keeps each
+    read slot's capture from the rounds whose index is >= 0 and sums the
+    applied entries.  With ``has_telem`` the fold runs ONCE, on the
+    block's final state.
 
     The ``purge_*`` flags reset a plane on recycle; the port defaults
     them to False (the reference defaults them to True, a no-op on planes
     never used).  A recycle resets the read slots where ``has_reads`` or
-    ``purge_reads`` is set; ``purge_kv`` belongs to a later slice and
-    raises if set with churn."""
-    _off_slice(has_kv)
-    _check_purge(has_churn, purge_kv)
+    ``purge_reads`` is set, and the device state machine where ``has_kv``
+    or ``purge_kv`` is."""
     g = st.match.shape[0]
     dev = st.match.device
     zeros = torch.zeros((g,), dtype=BOOL, device=dev)
@@ -606,27 +664,43 @@ def quorum_multiround_impl(
         s = st.read_index.shape[1]
         done_cnt = torch.zeros((g, s), dtype=I32, device=dev)
         done_idx = torch.full((g, s), -1, dtype=I32, device=dev)
+    kval = kidx = kap = None
+    if has_kv:
+        r_slots = kv_read_key.shape[2]
+        kval = torch.zeros((g, r_slots), dtype=I32, device=dev)
+        kidx = torch.full((g, r_slots), -1, dtype=I32, device=dev)
+        kap = torch.zeros((g,), dtype=I32, device=dev)
     for r in range(ack_max.shape[0]):
         if has_churn:
             st = _apply_recycle(
                 st, churn_row[r], churn_term[r], churn_start[r], churn_last[r],
                 reset_reads=has_reads or purge_reads,
+                reset_kv=has_kv or purge_kv,
                 reset_telem=has_telem or purge_telem,
             )
         am = ack_max[r]
         reads_r = ((read_stage_idx[r], read_stage_cnt[r], read_ack[r])
                    if has_reads else (None, None, None))
+        kv_r = ((kv_ent_idx[r], kv_ent_key[r], kv_ent_val[r], kv_read_key[r])
+                if has_kv else (None, None, None, None))
         out = quorum_step_dense_impl(
             st, am.clamp_min(0), am >= 0,
-            vote_new[r] if has_votes else None, *reads_r,
+            vote_new[r] if has_votes else None, *reads_r, *kv_r,
             do_tick=False, track_contact=track_contact, has_votes=has_votes,
-            has_reads=has_reads, has_hier=has_hier,
+            has_reads=has_reads, has_kv=has_kv, has_hier=has_hier,
         )
         st = out.state
         won, lost = won | out.won, lost | out.lost
         if has_reads:
             done_cnt = done_cnt + out.read_done_count
             done_idx = torch.maximum(done_idx, out.read_done_index)
+        if has_kv:
+            # a KV read slot captures in one round of the block: overwrite
+            # where this round captured
+            kcap = out.kv_read_index >= 0
+            kval = torch.where(kcap, out.kv_read_val, kval)
+            kidx = torch.where(kcap, out.kv_read_index, kidx)
+            kap = kap + out.kv_applied
         if do_tick:
             tm = tick_mask[r]
             ticked, tflags = tick_step(st)
@@ -645,7 +719,8 @@ def quorum_multiround_impl(
         )
     return StepOutputs(
         st, st.committed, won, lost, TickFlags(elect, hb, demote),
-        read_done_count=done_cnt, read_done_index=done_idx, telem=telem,
+        read_done_count=done_cnt, read_done_index=done_idx,
+        kv_read_val=kval, kv_read_index=kidx, kv_applied=kap, telem=telem,
     )
 
 
@@ -677,6 +752,24 @@ def _outputs(st: QuorumState, buf: torch.Tensor, telem=None,
         read_done_count=None if done is None else done[0],
         read_done_index=None if done is None else done[1],
         telem=telem,
+    )
+
+
+def _kv_views(block: torch.Tensor, g: int, r: int):
+    """``(kv_read_val (G,R), kv_read_index (G,R), kv_applied (G,))`` as
+    views of one flat (2·G·R + G,) int32 block."""
+    n = g * r
+    return block[:n].view(g, r), block[n:2 * n].view(g, r), block[2 * n:]
+
+
+def kv_block(out: StepOutputs) -> torch.Tensor:
+    """The flat (2·G·R + G,) int32 tensor behind an entry point's
+    ``kv_read_val``, ``kv_read_index`` and ``kv_applied``: the engine
+    copies the three to the host as one block."""
+    v = out.kv_read_val
+    g, r = v.shape
+    return v.new_empty((0,)).set_(
+        v.untyped_storage(), v.storage_offset(), (2 * g * r + g,)
     )
 
 
@@ -730,7 +823,7 @@ def _pack_telem(agg: TelemAggregate) -> TelemAggregate:
 def _write_back(st: QuorumState, out: StepOutputs) -> StepOutputs:
     """Copy a plain version's result into the caller's state tensors (the
     in-place contract of the entry points) and pack its flags, its read
-    egress and its telemetry aggregate."""
+    and kv egress and its telemetry aggregate."""
     for old, new in zip(st, out.state):
         if new is not old:
             old.copy_(new)
@@ -741,7 +834,18 @@ def _write_back(st: QuorumState, out: StepOutputs) -> StepOutputs:
     done = None
     if out.read_done_count is not None:
         done = torch.stack([out.read_done_count, out.read_done_index])
-    return _outputs(st, buf, telem, done)
+    res = _outputs(st, buf, telem, done)
+    if out.kv_read_val is not None:
+        g, r = out.kv_read_val.shape
+        block = torch.cat([out.kv_read_val.reshape(-1),
+                           out.kv_read_index.reshape(-1), out.kv_applied]).to(I32)
+        res = _with_kv(res, block, g, r)
+    return res
+
+
+def _with_kv(out: StepOutputs, block: torch.Tensor, g: int, r: int) -> StepOutputs:
+    rv, ri, ap = _kv_views(block, g, r)
+    return out._replace(kv_read_val=rv, kv_read_index=ri, kv_applied=ap)
 
 
 _PEER_FIELDS = ("match", "next", "voting", "active", "votes", "near")
@@ -890,10 +994,62 @@ def _telem_launch(st, dev, k, count_reads, count_kv) -> TelemAggregate:
     return _telem_view(block, k)
 
 
-def _with_telem(st, dev, out, has_telem, telem_k, count_reads) -> StepOutputs:
+def _with_telem(st, dev, out, has_telem, telem_k, count_reads,
+                count_kv) -> StepOutputs:
     if not has_telem:
         return out
-    return out._replace(telem=_telem_launch(st, dev, telem_k, count_reads, False))
+    return out._replace(telem=_telem_launch(st, dev, telem_k, count_reads, count_kv))
+
+
+def _ckv(st: QuorumState, dev, inputs, k: Optional[int], commits, churn_map):
+    """The ``qs::Kv`` block of a device state machine launch
+    (``csrc/kv_plane.cu``), checked before the step kernel launches:
+    ``inputs`` are the (ent_idx, ent_key, ent_val, read_key) planes ((G,E)
+    ×3 and (G,R), with a leading K axis when ``k`` is given), or None for
+    the purge alone; ``commits`` the (K, G) watermark of each round (the
+    state's ``committed`` for a single round); ``churn_map`` K3's (K, G)
+    recycle map where recycles reset rows.  Returns the ctypes struct and
+    a fresh flat egress block (None for the purge)."""
+    g = st.match.shape[0]
+    v, e = st.kv_value.shape[1], st.kv_ent_index.shape[1]
+    if not 1 <= e <= MAX_KERNEL_KV_ENTS:
+        raise ValueError(f"{e} kv entry slots: the CUDA kernel takes 1..{MAX_KERNEL_KV_ENTS}")
+    if not 1 <= v <= MAX_KERNEL_KV_SLOTS:
+        raise ValueError(f"{v} kv value slots: the CUDA kernel takes 1..{MAX_KERNEL_KV_SLOTS}")
+    _check(st.kv_value, "kv_value", (g, v), I32)
+    for name in ("kv_ent_index", "kv_ent_key", "kv_ent_val"):
+        _check(getattr(st, name), name, (g, e), I32)
+    rounds = 1 if k is None else k
+    ck = _build.CKv(
+        value=_ptr(st.kv_value), ent_index=_ptr(st.kv_ent_index),
+        ent_key=_ptr(st.kv_ent_key), ent_val=_ptr(st.kv_ent_val),
+        churn_map=_ptr(churn_map), G=g, V=v, E=e, K=rounds,
+    )
+    block = None
+    if inputs is not None:
+        ent_idx, ent_key, ent_val, read_key = inputs
+        lead = () if k is None else (k,)
+        r = read_key.shape[-1]
+        if not 1 <= r <= MAX_KERNEL_KV_READS:
+            raise ValueError(f"{r} kv read slots: the CUDA kernel takes 1..{MAX_KERNEL_KV_READS}")
+        for t, name in ((ent_idx, "kv_ent_idx"), (ent_key, "kv_ent_key"),
+                        (ent_val, "kv_ent_val")):
+            _check(t, name, lead + (g, e), I32)
+        _check(read_key, "kv_read_key", lead + (g, r), I32)
+        _check(commits, "commits", (rounds, g) if k is not None else (g,), I32)
+        block = torch.empty((2 * g * r + g,), dtype=I32, device=dev)
+        rv, ri, ap = _kv_views(block, g, r)
+        ck.in_idx, ck.in_key, ck.in_val = _ptr(ent_idx), _ptr(ent_key), _ptr(ent_val)
+        ck.read_key, ck.commits, ck.R = _ptr(read_key), _ptr(commits), r
+        ck.read_val, ck.read_idx, ck.applied = _ptr(rv), _ptr(ri), _ptr(ap)
+    return ck, block
+
+
+def _kv_run(dev, ck, flags: int) -> None:
+    """Launch the device state machine after the step kernel, on the same
+    stream (``flags``: the ``_KV_*`` bits)."""
+    _run("kv_plane", dev, lambda lib, stream: lib.qs_kv_plane(
+        ctypes.byref(ck), flags, stream))
 
 
 def quorum_step(
@@ -911,9 +1067,9 @@ def quorum_step(
 ) -> StepOutputs:
     """ONE sparse round over K padded events, in place (K2 on CUDA:
     ``csrc/quorum_step.cu``, then the fold with ``has_telem``, counting
-    read slots with ``has_reads``).  ``has_votes=False`` leaves the vote
-    arguments unread (they may be dummies)."""
-    _off_slice(has_kv)
+    read slots with ``has_reads`` and entry slots with ``has_kv``).
+    ``has_votes=False`` leaves the vote arguments unread (they may be
+    dummies)."""
     votes_in = (vote_g, vote_p, vote_grant, vote_valid) if has_votes else ()
     dev = _device_of(st, ack_g, ack_p, ack_val, ack_valid, *votes_in)
     if dev.type == "cpu":
@@ -922,14 +1078,14 @@ def quorum_step(
             vote_g, vote_p, vote_grant, vote_valid,
             do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
             has_hier=has_hier, has_telem=has_telem, telem_k=telem_k,
-            has_reads=has_reads,
+            has_reads=has_reads, has_kv=has_kv,
         ))
     out = _sparse_launch(
         st, dev, (ack_g, ack_p, ack_val, ack_valid),
         (vote_g, vote_p, vote_grant, vote_valid), do_tick, track_contact,
         has_votes, has_hier,
     )
-    return _with_telem(st, dev, out, has_telem, telem_k, has_reads)
+    return _with_telem(st, dev, out, has_telem, telem_k, has_reads, has_kv)
 
 
 def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
@@ -978,31 +1134,36 @@ def quorum_step_dense(
     telem_k: int = TELEM_TOPK,
 ) -> StepOutputs:
     """ONE dense round, in place (K1 on CUDA: ``csrc/quorum_step_dense.cu``,
-    its READS instances with ``has_reads``, then the fold with
-    ``has_telem``).  ``has_votes=False`` leaves ``vote_new`` unread, and
-    ``has_reads=False`` the read inputs."""
-    _off_slice(has_kv)
+    its READS instances with ``has_reads``, then the device state machine
+    (``csrc/kv_plane.cu``) with ``has_kv``, then the fold with
+    ``has_telem``).  ``has_votes=False`` leaves ``vote_new`` unread,
+    ``has_reads=False`` the read inputs and ``has_kv=False`` the kv
+    inputs."""
     reads_in = (read_stage_idx, read_stage_cnt, read_ack) if has_reads else ()
+    kv_in = (kv_ent_idx, kv_ent_key, kv_ent_val, kv_read_key) if has_kv else ()
     dev = _device_of(st, ack_max, ack_touched, vote_new if has_votes else None,
-                     *reads_in)
+                     *reads_in, *kv_in)
     if dev.type == "cpu":
         return _write_back(st, quorum_step_dense_impl(
-            st, ack_max, ack_touched, vote_new, *reads_in,
+            st, ack_max, ack_touched, vote_new, read_stage_idx, read_stage_cnt,
+            read_ack, kv_ent_idx, kv_ent_key, kv_ent_val, kv_read_key,
             do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
-            has_reads=has_reads, has_hier=has_hier, has_telem=has_telem,
-            telem_k=telem_k,
+            has_reads=has_reads, has_kv=has_kv, has_hier=has_hier,
+            has_telem=has_telem, telem_k=telem_k,
         ))
     out = _dense_launch(
         st, dev, ack_max, ack_touched, vote_new, do_tick, track_contact,
-        has_votes, has_hier, reads=reads_in or None,
+        has_votes, has_hier, reads=reads_in or None, kv=kv_in or None,
     )
-    return _with_telem(st, dev, out, has_telem, telem_k, has_reads)
+    return _with_telem(st, dev, out, has_telem, telem_k, has_reads, has_kv)
 
 
 def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
-                  track_contact, has_votes, has_hier=False, reads=None):
+                  track_contact, has_votes, has_hier=False, reads=None, kv=None):
     """``reads``: the (stage_idx, stage_cnt, echo) inputs of the READS
-    instance, or None."""
+    instance, or None; ``kv``: the (ent_idx, ent_key, ent_val, read_key)
+    inputs of the device state machine, launched after K1 at the
+    watermark K1 leaves, or None."""
     cst = _cstate(st)
     g, p = st.match.shape
     _check(ack_max, "ack_max", (g, p), I32)
@@ -1014,6 +1175,9 @@ def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
     cr = done = None
     if reads is not None:
         cr, done = _creads(st, dev, reads, None)
+    ckv = kv_out = None
+    if kv is not None:
+        ckv, kv_out = _ckv(st, dev, kv, None, st.committed, None)
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
     _run("quorum_step_dense", dev, lambda lib, stream: lib.qs_dense(
@@ -1022,7 +1186,11 @@ def _dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
         _bits(do_tick, track_contact, has_votes, has_hier=has_hier,
               has_reads=cr is not None), stream,
     ), _also(has_hier, cr is not None))
-    return _outputs(st, buf, done=done)
+    out = _outputs(st, buf, done=done)
+    if ckv is not None:
+        _kv_run(dev, ckv, _KV_PLANE)
+        out = _with_kv(out, kv_out, g, ckv.R)
+    return out
 
 
 def quorum_multiround(
@@ -1046,43 +1214,52 @@ def quorum_multiround(
 ) -> StepOutputs:
     """K rounds with in-program churn in ONE launch, in place (K3 on CUDA:
     ``csrc/quorum_multiround.cu``, its READS instances with ``has_reads``
-    from ``csrc/quorum_multiround_reads.cu``, then the fold once with
+    from ``csrc/quorum_multiround_reads.cu``, then the device state
+    machine's K rounds (``csrc/kv_plane.cu``) with ``has_kv`` or its
+    recycle purge with ``purge_kv``, then the fold once with
     ``has_telem``).  Arguments of disabled features (votes without
     ``has_votes``, churn records without ``has_churn``, ``tick_mask``
-    without ``do_tick``, read inputs without ``has_reads``) are unread."""
-    _off_slice(has_kv)
-    _check_purge(has_churn, purge_kv)
+    without ``do_tick``, read inputs without ``has_reads``, kv inputs
+    without ``has_kv``) are unread."""
     churn_in = (churn_row, churn_term, churn_start, churn_last) if has_churn else ()
     reads_in = (read_stage_idx, read_stage_cnt, read_ack) if has_reads else ()
+    kv_in = (kv_ent_idx, kv_ent_key, kv_ent_val, kv_read_key) if has_kv else ()
     dev = _device_of(
         st, ack_max, vote_new if has_votes else None, *churn_in,
-        tick_mask if do_tick else None, *reads_in,
+        tick_mask if do_tick else None, *reads_in, *kv_in,
     )
     if dev.type == "cpu":
         return _write_back(st, quorum_multiround_impl(
             st, ack_max, vote_new, churn_row, churn_term, churn_start,
-            churn_last, tick_mask, *reads_in, do_tick=do_tick,
+            churn_last, tick_mask, read_stage_idx, read_stage_cnt, read_ack,
+            kv_ent_idx, kv_ent_key, kv_ent_val, kv_read_key, do_tick=do_tick,
             track_contact=track_contact, has_votes=has_votes,
             has_churn=has_churn, has_reads=has_reads, purge_reads=purge_reads,
-            has_hier=has_hier, has_telem=has_telem, purge_telem=purge_telem,
-            telem_k=telem_k,
+            has_kv=has_kv, purge_kv=purge_kv, has_hier=has_hier,
+            has_telem=has_telem, purge_telem=purge_telem, telem_k=telem_k,
         ))
     out = _multiround_launch(
         st, dev, ack_max, vote_new,
         (churn_row, churn_term, churn_start, churn_last), tick_mask,
         do_tick, track_contact, has_votes, has_churn, has_hier,
         reset_telem=has_telem or purge_telem, reads=reads_in or None,
-        reset_reads=has_reads or purge_reads,
+        reset_reads=has_reads or purge_reads, kv=kv_in or None,
+        reset_kv=has_kv or purge_kv,
     )
-    return _with_telem(st, dev, out, has_telem, telem_k, has_reads)
+    return _with_telem(st, dev, out, has_telem, telem_k, has_reads, has_kv)
 
 
 def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
                        track_contact, has_votes, has_churn, has_hier=False,
-                       reset_telem=False, reads=None, reset_reads=False):
+                       reset_telem=False, reads=None, reset_reads=False,
+                       kv=None, reset_kv=False):
     """``reads``: the (K,G,S), (K,G,S), (K,G,S,P) inputs of the READS
     instance, or None.  ``reset_reads`` (with churn) zeroes a recycled
-    row's read slots."""
+    row's read slots.  ``kv``: the (K,G,E) ×3 and (K,G,R) inputs of the
+    device state machine, or None; K3 then writes each round's watermark
+    into a (K, G) trace, and the kv kernel runs the block's rounds on it
+    after K3, resetting the rows K3's churn map recycles.  Without ``kv``,
+    ``reset_kv`` (with churn) launches the kv kernel's purge alone."""
     churn_row, churn_term, churn_start, churn_last = churn
     cst = _cstate(st)
     g, p = st.match.shape
@@ -1110,6 +1287,12 @@ def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
     cr = done = None
     if reads is not None or reset_reads:
         cr, done = _creads(st, dev, reads, k)
+    trace = ckv = kv_out = None
+    if kv is not None:
+        trace = torch.empty((k, g), dtype=I32, device=dev)
+        ckv, kv_out = _ckv(st, dev, kv, k, trace, churn_map)
+    elif reset_kv and has_churn:
+        ckv, _ = _ckv(st, dev, None, k, None, churn_map)
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
     bits = _bits(do_tick, track_contact, has_votes, has_churn, has_hier,
@@ -1117,8 +1300,15 @@ def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
     _run("quorum_multiround", dev, lambda lib, stream: lib.qs_multiround(
         ctypes.byref(cst), _ptr(ack_max), _ptr(vote_new), _ptr(churn_row),
         _ptr(churn_term), _ptr(churn_start), _ptr(churn_last), n_records,
-        _ptr(tick_mask), k, _ptr(churn_map),
+        _ptr(tick_mask), k, _ptr(churn_map), _ptr(trace),
         None if cr is None else ctypes.byref(cr), ctypes.byref(cfl), bits,
         stream,
     ), _also(has_hier, reads is not None))
-    return _outputs(st, buf, done=done)
+    out = _outputs(st, buf, done=done)
+    reset = _KV_RESET if has_churn else 0
+    if kv is not None:
+        _kv_run(dev, ckv, _KV_PLANE | _KV_CARRY | reset)
+        out = _with_kv(out, kv_out, g, ckv.R)
+    elif ckv is not None:
+        _kv_run(dev, ckv, _KV_RESET)
+    return out

@@ -43,9 +43,8 @@ KV_ENT_SLOTS = 16
 KV_READ_SLOTS = 4
 
 # Field sets of the optional planes; everything else is the core quorum
-# plane.  The port's kernels touch the quorum, hier and telem planes; the
-# read and devsm planes are carried at their reset values until the
-# slices that port them.
+# plane.  An engine keeps a plane's fields at their reset values until the
+# plane's latch flips (``BatchedQuorumEngine._sync_keys``).
 READ_PLANE_FIELDS = ("read_index", "read_count", "read_acks")
 DEVSM_PLANE_FIELDS = ("kv_value", "kv_ent_index", "kv_ent_key", "kv_ent_val")
 HIER_PLANE_FIELDS = ("near", "sub_quorum")
@@ -97,12 +96,12 @@ class QuorumState(NamedTuple):
     active: torch.Tensor          # (G,P) bool: remote.active (CheckQuorum recency)
     votes: torch.Tensor           # (G,P) i8: VOTE_NONE / VOTE_REJECT / VOTE_GRANT
 
-    # --- pending ReadIndex ctx slots (read plane, a later slice) --------
+    # --- pending ReadIndex ctx slots (read plane) ------------------------
     read_index: torch.Tensor      # (G,S) i32 rel
     read_count: torch.Tensor      # (G,S) i32
     read_acks: torch.Tensor       # (G,S,P) bool
 
-    # --- device state machine (devsm plane, a later slice) --------------
+    # --- device state machine (devsm plane) ------------------------------
     kv_value: torch.Tensor        # (G,V) i32
     kv_ent_index: torch.Tensor    # (G,E) i32 rel; -1 = free
     kv_ent_key: torch.Tensor      # (G,E) i32

@@ -454,3 +454,129 @@ def test_emulated_read_slot_cap_is_enforced(launch):
         tk._dense_launch(_state(ts.state_to_numpy(ts.make_state(4, 3, device="cpu"))),
                          CPU, z, z.bool(), None, False, True, False,
                          reads=(reads[0][:, :4].contiguous(), reads[1], reads[2][:, :4].contiguous()))
+
+
+def _kv_state(f, rng, v, e):
+    """Buffered entries (keys in and outside [0, V)), random values, and
+    the state from :func:`_fields` resized to V value slots and E entry
+    slots."""
+    g = f["match"].shape[0]
+    f["kv_value"] = rng.integers(-40, 40, (g, v)).astype(np.int32)
+    f["kv_ent_index"] = np.where(rng.random((g, e)) < 0.4,
+                                 rng.integers(0, 16, (g, e)), -1).astype(np.int32)
+    f["kv_ent_key"] = rng.integers(-2, v + 2, (g, e)).astype(np.int32)
+    f["kv_ent_val"] = rng.integers(-2**31, 2**31, (g, e)).astype(np.int32)
+    f["committed"][3::11] = -2
+    return f
+
+
+def _kv_inputs(rng, g, v, e, r, lead=()):
+    idx = np.where(rng.random(lead + (g, e)) < 0.35, rng.integers(0, 20, lead + (g, e)),
+                   rng.choice([-1, -1, -3], lead + (g, e))).astype(np.int32)
+    key = rng.integers(-2, v + 2, lead + (g, e)).astype(np.int32)
+    val = rng.integers(-2**31, 2**31, lead + (g, e)).astype(np.int32)
+    rk = np.where(rng.random(lead + (g, r)) < 0.5, rng.integers(0, v + 2, lead + (g, r)),
+                  rng.choice([-1, -5], lead + (g, r))).astype(np.int32)
+    # row 0: ready entries sharing a key at the largest index (summed)
+    f_idx = idx[(0,) * len(lead)] if lead else idx
+    f_idx[0, :] = -1
+    f_idx[0, :2] = 3
+    (key[(0,) * len(lead)] if lead else key)[0, :2] = 0
+    return tuple(torch.from_numpy(a) for a in (idx, key, val, rk))
+
+
+def _assert_kv_same(kout, pout, tag):
+    _assert_same(kout, pout, tag)
+    for name in ("kv_read_val", "kv_read_index", "kv_applied"):
+        assert torch.equal(getattr(kout, name), getattr(pout, name)), (tag, name)
+
+
+KV_WIDTHS = [(16, 16, 4), (1, 1, 1), (1024, 32, 8)]  # (V, E, R); the last: the caps
+
+
+@pytest.mark.parametrize("v,e,r", KV_WIDTHS)
+def test_emulated_kv_plane_after_dense_kernel_matches_plain(launch, v, e, r):
+    """K = 1: kv_plane.cu after K1 (its READS and HIER instances too) at
+    the watermark K1 leaves, against the plain dense step with has_kv."""
+    p = 5
+    for i, (tick, reads, hier) in enumerate(itertools.product([False, True], repeat=3)):
+        seed = 900 + 10 * e + i
+        rng = np.random.default_rng(seed)
+        f, rd = _read_block(seed, G, p, 4, 1)
+        f = _kv_state(_hier_telem(f, rng), rng, v, e)
+        kv = _kv_inputs(rng, G, v, e, r)
+        touched = torch.from_numpy(rng.random((G, p)) < 0.5)
+        ack = torch.where(touched, torch.from_numpy(rng.integers(0, 25, (G, p)).astype(np.int32)), 0)
+        rd1 = (rd[0][0], rd[1][0], rd[2][0]) if reads else None
+        kout = tk._dense_launch(_state(f), CPU, ack, touched, None, tick, True, False,
+                                hier, reads=rd1, kv=kv)
+        pout = tk.quorum_step_dense_impl(
+            _state(f), ack, touched, None, *(rd1 or (None,) * 3), *kv, do_tick=tick,
+            has_votes=False, has_hier=hier, has_reads=reads, has_kv=True,
+        )
+        _assert_kv_same(kout, pout, (v, e, r, tick, reads, hier))
+        assert pout.kv_applied.sum() > 0
+    assert tk.launch_counts()["kv_plane"] == 8
+
+
+@pytest.mark.parametrize("v,e,r", KV_WIDTHS)
+def test_emulated_kv_plane_after_multiround_kernel_matches_plain(launch, v, e, r):
+    """K = 16: K3 writes each round's watermark into the trace and
+    kv_plane.cu runs the rounds on it, resetting the rows K3's churn map
+    recycles (row 0, entries buffered, at round 5) before that round's
+    stage; then the purge alone (purge_kv, the plane off)."""
+    k, c, p = 16, 6, 3
+    for i, (churn, reads, tick) in enumerate(itertools.product([False, True], repeat=3)):
+        seed = 950 + 10 * e + i
+        rng = np.random.default_rng(seed)
+        f, rd = _read_block(seed, G, p, 4, k)
+        f = _kv_state(f, rng, v, e)
+        ack = np.where(rng.random((k, G, p)) < 0.4, rng.integers(0, 25, (k, G, p)), -1).astype(np.int32)
+        rows = np.full((k, c), G, np.int32)
+        for rr in range(k):
+            rows[rr, :c - 1] = rng.choice(np.arange(1, G), size=c - 1, replace=False)
+        rows[5, c - 1] = 0
+        start = rng.integers(0, 5, (k, c)).astype(np.int32)
+        churn_t = tuple(torch.from_numpy(a) for a in (
+            rows, rng.integers(1, 9, (k, c)).astype(np.int32), start,
+            (start + rng.integers(0, 5, (k, c))).astype(np.int32)))
+        tick_mask = torch.from_numpy(rng.random(k) < 0.5)
+        kv = _kv_inputs(rng, G, v, e, r, lead=(k,))
+        ack_t, vote_t = torch.from_numpy(ack), torch.zeros((1, 1, 1), dtype=torch.int8)
+        kout = tk._multiround_launch(
+            _state(f), CPU, ack_t, vote_t, churn_t, tick_mask, tick, True, False, churn,
+            reads=rd if reads else None, reset_reads=reads, kv=kv, reset_kv=True,
+        )
+        pout = tk.quorum_multiround_impl(
+            _state(f), ack_t, vote_t, *churn_t, tick_mask, *(rd if reads else (None,) * 3),
+            *kv, do_tick=tick, has_churn=churn, has_reads=reads, has_kv=True,
+        )
+        tag = (v, e, r, churn, reads, tick)
+        _assert_kv_same(kout, pout, tag)
+        assert pout.kv_applied.sum() > 0 and (pout.kv_read_index >= 0).any()
+        if churn:
+            purge = tk._multiround_launch(
+                _state(f), CPU, ack_t, vote_t, churn_t, tick_mask, tick, True, False,
+                True, reset_kv=True,
+            )
+            plain = tk.quorum_multiround_impl(
+                _state(f), ack_t, vote_t, *churn_t, tick_mask, do_tick=tick,
+                has_churn=True, purge_kv=True,
+            )
+            _assert_same(purge, plain, tag + ("purge",))
+            assert not plain.state.kv_value[0].any() and purge.kv_read_val is None
+    counts = tk.launch_counts()
+    assert counts["kv_plane"] == 8 + 4 and counts["quorum_multiround"] == 12
+
+
+def test_emulated_kv_caps_are_enforced(launch):
+    """E, V and R are launch arguments with caps: the wrapper refuses a
+    width past them, as it does S past the read plane's."""
+    for v, e, r, what in ((16, 33, 4, "entry slots"), (1025, 16, 4, "value slots"),
+                          (16, 16, 9, "read slots")):
+        f = ts.state_to_numpy(ts.make_state(4, 3, n_kv_slots=v, n_kv_ents=e, device="cpu"))
+        z = torch.zeros((4, 3), dtype=torch.int32)
+        kv = (torch.full((4, e), -1, dtype=torch.int32), torch.zeros((4, e), dtype=torch.int32),
+              torch.zeros((4, e), dtype=torch.int32), torch.full((4, r), -1, dtype=torch.int32))
+        with pytest.raises(ValueError, match=what):
+            tk._dense_launch(_state(f), CPU, z, z.bool(), None, False, True, False, kv=kv)

@@ -300,16 +300,17 @@ def test_engine_needs_a_device_and_refuses_later_planes():
     with pytest.raises(NotImplementedError, match="later slice"):
         BatchedQuorumEngine(4, 3, sharding=object(), device="cpu")
     eng = BatchedQuorumEngine(4, 3, device="cpu")
-    assert eng.fused_ready
+    assert eng.fused_ready and eng.kv_fused_ready
     eng.add_group(1, node_ids=[1, 2, 3], self_id=1)
-    for call in (lambda: eng.stage_kv_read(1, 0),
-                 lambda: eng.stage_kv_ops(1, [1], [0], [0]),
-                 lambda: eng.warmup_fused(), lambda: eng.enable_obs(),
-                 lambda: eng.warm_plan(), lambda: eng.kv_values(1)):
+    for call in (lambda: eng.warmup_fused(), lambda: eng.warmup_devsm(),
+                 lambda: eng.enable_obs(), lambda: eng.warm_plan()):
         with pytest.raises(NotImplementedError, match="later slice"):
             call()
-    # the read, hier and telemetry planes are carried now
+    # the read, devsm, hier and telemetry planes are carried now
     assert eng.stage_read(1, count=2) == 0 and eng.read_slots_free(1) == 3
+    assert eng.stage_kv_read(1, 0) == 0 and eng.kv_reads_free(1) == 3
+    assert eng.stage_kv_ops(1, [1], [0], [0]) is True
+    assert np.array_equal(eng.kv_values(1), np.zeros(eng.n_kv_slots, np.int64))
     eng.set_hier(1, [1, 2], 2)
     eng.enable_telem()
     assert eng.telem_enabled and eng.telem_snapshot() is None

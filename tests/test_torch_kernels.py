@@ -336,13 +336,10 @@ def test_quorum_multiround_padded_block_matches_jax():
 
 
 # ----------------------------------------------------------------------
-# planes of later slices
+# the optional planes on every entry point
 # ----------------------------------------------------------------------
 
 OFF_SLICE = ["has_hier", "has_telem", "has_reads", "has_kv"]
-# planes the port carries: set alone they run; beside a plane it does not
-# carry, the refusal still comes
-PORTED = {"has_hier", "has_telem", "has_reads"}
 
 
 def _read_inputs(entry, g=4, p=3, s=ts.READ_SLOTS):
@@ -355,52 +352,94 @@ def _read_inputs(entry, g=4, p=3, s=ts.READ_SLOTS):
     }
 
 
+def _kv_inputs(entry, g=4, e=ts.KV_ENT_SLOTS, r=ts.KV_READ_SLOTS):
+    """Empty devsm inputs (no stage, no read) for the entry's shape."""
+    lead = (1,) if entry == "quorum_multiround" else ()
+    return {
+        "kv_ent_idx": torch.full(lead + (g, e), -1, dtype=torch.int32),
+        "kv_ent_key": torch.zeros(lead + (g, e), dtype=torch.int32),
+        "kv_ent_val": torch.zeros(lead + (g, e), dtype=torch.int32),
+        "kv_read_key": torch.full(lead + (g, r), -1, dtype=torch.int32),
+    }
+
+
+def _entry_args(entry):
+    z = torch.zeros((4,), dtype=torch.int32)
+    if entry == "quorum_step":
+        return (z, z, z, z.bool(), z, z, z.to(torch.int8), z.bool())
+    if entry == "quorum_step_dense":
+        m = torch.zeros((4, 3), dtype=torch.int32)
+        return (m, m.bool(), m.to(torch.int8))
+    c = torch.zeros((1, 1), dtype=torch.int32)
+    return (torch.full((1, 4, 3), -1, dtype=torch.int32),
+            torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
+            torch.ones((1,), dtype=torch.bool))
+
+
 @pytest.mark.parametrize("flag", OFF_SLICE)
 @pytest.mark.parametrize("entry", ["quorum_step", "quorum_step_dense", "quorum_multiround"])
 def test_off_slice_flags_raise(entry, flag):
+    """Every plane the JAX entry points take runs in the port: each flag
+    alone, then all four together (the sparse step takes has_reads and
+    has_kv as the fold's hints alone, with no event planes)."""
     st = ts.make_state(4, 3, device="cpu")
-    z = torch.zeros((4,), dtype=torch.int32)
-    if entry == "quorum_step":
-        args = (z, z, z, z.bool(), z, z, z.to(torch.int8), z.bool())
-    elif entry == "quorum_step_dense":
-        m = torch.zeros((4, 3), dtype=torch.int32)
-        args = (m, m.bool(), m.to(torch.int8))
-    else:
-        c = torch.zeros((1, 1), dtype=torch.int32)
-        args = (torch.full((1, 4, 3), -1, dtype=torch.int32),
-                torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
-                torch.ones((1,), dtype=torch.bool))
+    args = _entry_args(entry)
     kw = {flag: True}
-    if flag == "has_reads" and entry != "quorum_step":
-        # the sparse step takes has_reads as the fold's hint alone
+    planes = entry != "quorum_step"
+    if flag == "has_reads" and planes:
         kw.update(_read_inputs(entry))
-    if flag in PORTED:
-        out = getattr(tk, entry)(st, *args, **kw)
-        assert (out.telem is not None) == (flag == "has_telem")
-        assert (out.read_done_count is not None) == (
-            flag == "has_reads" and entry != "quorum_step")
-        kw["has_kv"] = True
-    with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(tk, entry)(st, *args, **kw)
+    if flag == "has_kv" and planes:
+        kw.update(_kv_inputs(entry))
+    out = getattr(tk, entry)(st, *args, **kw)
+    assert (out.telem is not None) == (flag == "has_telem")
+    assert (out.read_done_count is not None) == (flag == "has_reads" and planes)
+    assert (out.kv_read_val is not None) == (flag == "has_kv" and planes)
+    if flag == "has_kv" and planes:
+        assert out.kv_read_index.eq(-1).all() and not out.kv_applied.any()
+    kw = dict.fromkeys(OFF_SLICE, True)
+    if planes:
+        kw.update(_read_inputs(entry), **_kv_inputs(entry))
+    out = getattr(tk, entry)(st, *args, **kw)
+    assert out.telem is not None
+    assert (out.kv_applied is not None) == planes
 
 
 @pytest.mark.parametrize("flag", ["purge_reads", "purge_kv", "purge_telem"])
 def test_plane_purge_on_recycle_raises(flag):
-    st = ts.make_state(4, 3, device="cpu")
+    """Each plane's recycle purge runs on a block with churn and resets
+    the recycled row's plane (and no other row's); without churn no
+    recycle runs, so the flag has nothing to reset."""
+    f = ts.state_to_numpy(ts.make_state(4, 3, device="cpu"))
+    f["read_index"][:] = 3
+    f["read_count"][:] = 2
+    f["read_acks"][:] = True
+    f["kv_value"][:] = 7
+    f["kv_ent_index"][:] = 5
+    f["kv_ent_key"][:] = 1
+    f["kv_ent_val"][:] = 9
+    f["telem_prev_committed"][:] = 4
+    fields = {"purge_reads": ts.READ_PLANE_FIELDS, "purge_kv": ts.DEVSM_PLANE_FIELDS,
+              "purge_telem": ts.TELEM_PLANE_FIELDS}[flag]
     c = torch.zeros((1, 1), dtype=torch.int32)
     args = (torch.full((1, 4, 3), -1, dtype=torch.int32),
-            torch.zeros((1, 1, 1), dtype=torch.int8), c, c, c, c,
+            torch.zeros((1, 1, 1), dtype=torch.int8), c + 2, c + 1, c, c,
             torch.ones((1,), dtype=torch.bool))
-    kw = {flag: True}
-    if flag in ("purge_reads", "purge_telem"):
-        # the read and telemetry planes are carried: their purge runs, and
-        # a purge the port does not carry, beside it, still raises
-        tk.quorum_multiround(st, *args, has_churn=True, **kw)
-        kw["purge_kv"] = True
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tk.quorum_multiround(st, *args, has_churn=True, **kw)
-    # without churn no recycle runs, so the flag has nothing to reset
-    tk.quorum_multiround(st, *args, has_churn=False, **kw)
+    st = ts.state_from_numpy(f, device="cpu")
+    tk.quorum_multiround(st, *args, has_churn=True, **{flag: True})
+    fresh = ts.state_to_numpy(ts.make_state(4, 3, device="cpu"))
+    for name in fields:
+        after = getattr(st, name).numpy()
+        assert np.array_equal(after[2], fresh[name][2]), name
+        assert np.array_equal(after[[0, 1, 3]], f[name][[0, 1, 3]]), name
+    for other in {"purge_reads", "purge_kv", "purge_telem"} - {flag}:
+        for name in {"purge_reads": ts.READ_PLANE_FIELDS,
+                     "purge_kv": ts.DEVSM_PLANE_FIELDS,
+                     "purge_telem": ts.TELEM_PLANE_FIELDS}[other]:
+            assert np.array_equal(getattr(st, name).numpy(), f[name]), name
+    st = ts.state_from_numpy(f, device="cpu")
+    tk.quorum_multiround(st, *args, has_churn=False, **{flag: True})
+    for name in fields:
+        assert np.array_equal(getattr(st, name).numpy(), f[name]), name
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
@@ -409,5 +448,5 @@ def test_wrappers_count_no_launch_on_the_cpu():
     run_dense(f, dense_inputs(7000, 16, 3))
     assert tk.launch_counts() == {
         "quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
-        "telem_fold": 0, "finish_hier": 0, "read_plane": 0,
+        "telem_fold": 0, "finish_hier": 0, "read_plane": 0, "kv_plane": 0,
     }
