@@ -3,6 +3,9 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --only rung4,rung4_devsm
+                                     # the build and the named main paths
+                                     # alone (no kernels or result line)
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -373,16 +376,16 @@ def kernel_bytes(name, inputs, flags, before, after):
 def kv_bytes(before, after, inputs, k, churn):
     """Bytes the device state machine must move on this run's data: the kv
     state read once a row (V + 3E ints), its inputs, the (K, G) watermark
-    trace that K3 writes and it reads, K3's (K, G) churn map where
-    recycles reset rows, the kv cells that change and the (G, R) x 2 +
-    (G,) egress."""
+    trace it reads (K3's write of the trace is charged to K3), K3's (K, G)
+    churn map where recycles reset rows, the kv cells that change and the
+    (G, R) x 2 + (G,) egress."""
     g, v = before.kv_value.shape
     e = before.kv_ent_index.shape[1]
     r = inputs[3].shape[-1]
     changed = sum(int((a != b).sum()) * 4 for a, b in (
         (before.kv_value, after.kv_value), (before.kv_ent_index, after.kv_ent_index),
         (before.kv_ent_key, after.kv_ent_key), (before.kv_ent_val, after.kv_ent_val)))
-    return (g * (v + 3 * e) * 4 + sum(a.nbytes for a in inputs) + 2 * k * g * 4
+    return (g * (v + 3 * e) * 4 + sum(a.nbytes for a in inputs) + k * g * 4
             + (k * g * 4 if churn else 0) + changed + (2 * g * r + g) * 4)
 
 
@@ -739,52 +742,40 @@ def _time_kv(torch, ts, tk, dev, g=KV_G, p=5, k=KV_K, dims=KV_DIMS, seed=33_000)
     }, err
 
 
-def _time_trace(torch, ts, tk, dev, g=KV_G, p=5, k=KV_K, seed=34_000, iters=30):
+def _time_trace(torch, ts, tk, dev, g=KV_G, p=5, k=KV_K, seed=34_000):
     """K3's device time at rung 4's write shape (K = 16, no churn, no
     ticks, no contact) on a restored state, without the device state
-    machine and with it, where K3 also stores the (K, G) watermark trace;
-    the second span runs from K3's start to the kv_plane launch."""
+    machine and with K3's share of it, the (K, G) watermark trace that K3
+    stores (the kv_plane launch after it is skipped for that span), each
+    beside its bound: the trace's write is charged to K3."""
     fields = random_fields(ts, seed, g, p, kv=KV_DIMS[:2])
     inputs = _inputs("quorum_multiround", seed, g, p, k=k, kv=KV_DIMS)
     flags = dict(do_tick=False, track_contact=False, has_votes=False, has_churn=False)
     st = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
     saved = [t.clone() for t in st]
     args = _device_args(torch, inputs, dev)
-    mids = []
+
+    def reset():
+        for t, s0 in zip(st, saved):
+            t.copy_(s0)
+
+    pout = tk.quorum_multiround_impl(st_p, *args[:7], **flags)
+    nbytes = kernel_bytes("quorum_multiround", inputs, flags, st_p, pout.state)
+    ops = kernel_ops(g, p, k=k)
+    trace_bytes = k * g * 4
+    without = device_ms(torch, lambda: tk.quorum_multiround(st, *args[:7], **flags), reset)
     orig = tk._kv_run
-
-    def marked(*a, **kw):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        mids.append(ev)
-        return orig(*a, **kw)
-
-    def span(fn, to_mid):
-        pairs = []
-        for i in range(iters + 3):
-            for t, s0 in zip(st, saved):
-                t.copy_(s0)
-            if hasattr(torch.cuda, "_sleep"):
-                torch.cuda._sleep(2_000_000)
-            mids.clear()
-            b = torch.cuda.Event(enable_timing=True)
-            b.record()
-            fn()
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            if i >= 3:
-                pairs.append((b, mids[0] if to_mid else e))
-        torch.cuda.synchronize()
-        return statistics.median(b.elapsed_time(e) for b, e in pairs)
-
-    tk._kv_run = marked
+    tk._kv_run = lambda *a, **kw: None
     try:
-        without = span(lambda: tk.quorum_multiround(st, *args[:7], **flags), False)
-        with_trace = span(lambda: tk.quorum_multiround(st, *args, has_kv=True, **flags), True)
+        with_trace = device_ms(
+            torch, lambda: tk.quorum_multiround(st, *args, has_kv=True, **flags), reset)
     finally:
         tk._kv_run = orig
     return {"ms_without_kv": without, "ms_with_trace": with_trace,
-            "trace_bytes": k * g * 4, "shape": {"G": g, "P": p, "K": k}, "flags": flags}
+            "bound_ms_without_kv": bound_ms(nbytes, ops)[0],
+            "bound_ms_with_trace": bound_ms(nbytes + trace_bytes, ops)[0],
+            "trace_bytes": trace_bytes, "shape": {"G": g, "P": p, "K": k}, "flags": flags}
 
 
 def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag):
@@ -1366,7 +1357,7 @@ def phase_rung5_hier_telem(torch, engine_mod, tk, ts, dev, plain, n_groups=100_0
         "d2h_ms_p50": float(np.percentile(split["d2h_ms"], 50)),
         "snapshot_host_ms_p50": float(np.percentile(snap_ms, 50)),
         "snapshot_host_ms_max": float(np.max(snap_ms)),
-        "plain_rung5_same_run": {key: plain[key] for key in (
+        "plain_rung5_same_run": plain and {key: plain[key] for key in (
             "writes_per_sec", "dispatch_ms_p50", "dispatch_ms_p99",
             "kernel_ms_p50", "d2h_ms_p50")},
     }
@@ -2248,8 +2239,15 @@ def _frames(log):
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only":
+            print("usage: chip_smoke.py [--only PATH[,PATH...]]", file=sys.stderr)
+            return 2
+        only = set(argv[1].split(","))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2276,14 +2274,19 @@ def main() -> int:
               "compiled": info.get("compiled"),
               "source_seconds": info.get("source_seconds"),
               "registers_max": _registers(log), "frames": _frames(log)})
-        t0 = time.perf_counter()
-        timings = phase_kernels(torch, ts, tk, dev)
-        emit({"phase": "kernels_seconds", "seconds": time.perf_counter() - t0})
+        if only is None:
+            t0 = time.perf_counter()
+            timings = phase_kernels(torch, ts, tk, dev)
+            emit({"phase": "kernels_seconds", "seconds": time.perf_counter() - t0})
         launches = dict.fromkeys(TPU_KERNELS, 0)
+        ran = set()
 
         def main_path(label, run, kernels):
             """One main path's run, its launch counts zeroed just before
             and read just after; each of ``kernels`` must have launched."""
+            if only is not None and label not in only:
+                return None
+            ran.add(label)
             tk.reset_launch_counts()
             t_path = time.perf_counter()
             out = run()
@@ -2292,8 +2295,9 @@ def main() -> int:
                   "seconds": time.perf_counter() - t_path})
             for name in kernels:
                 check(counts[name] > 0, f"{name} never launched on the {label} path")
-            for name in launches:
-                launches[name] += counts[name]
+            if only is None:
+                for name in launches:
+                    launches[name] += counts[name]
             return out
 
         rung5 = main_path("rung5", lambda: phase_rung5(torch, engine_mod, tk, dev),
@@ -2317,6 +2321,10 @@ def main() -> int:
                   ("quorum_multiround", "kv_plane"))
         main_path("devsm_op_script", lambda: phase_devsm_ops(torch, engine_mod, dev),
                   STEP_KERNELS + ("finish_hier", "telem_fold", "kv_plane"))
+        if only is not None:
+            check(only <= ran, f"no main path named {sorted(only - ran)}")
+            emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+            return 0
         emit({"phase": "launches", "path": "all", **launches})
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the main path")
@@ -2340,4 +2348,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
