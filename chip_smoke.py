@@ -63,7 +63,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the hier rule and the fold on) through the sparse path (kv rounds
    forced dense) and the fused path, the card equal to the CPU after
    every step in every state field, the kv egress and the telemetry
-   snapshot.
+   snapshot;
+11. the device ladder of ``bench.py`` (``dragonboat_tpu_torch/ladder.py``):
+   the pipelined headline at 131,072 groups x 3 with R = 256 rounds a
+   dispatch whose acks are made on the device (``staged_multistep``), 3
+   warm-up and 5 measured dispatches; the latency-bounded mode at 1,024
+   groups, R = 1, 5 + 50 dispatches; and the host loop at 65,536 groups,
+   K = 16, 8 dispatches through the engine and K3; every dispatch's
+   watermarks checked on every row;
+12. an R = 16 host pipeline at 65,536 groups x 5 with ticks, elections
+   and the hier rule on a third of the leaders, run three ways from one
+   state: ``quorum_multistep`` on the sparse rounds,
+   ``quorum_multistep_dense`` on their numpy collapse and 16 launches of
+   the sparse step; the three bit-equal, and equal to the CPU's plain
+   scan.
 
 Phase 2 also holds the READS instances of K1 and K3 (the read plane)
 against the plain versions at 65,536 x 5 over the flag grids, and at
@@ -72,8 +85,13 @@ machine (``csrc/kv_plane.cu``) after K1 and K3 at 65,536 x 5, K = 16, with
 (V, E, R) = (16, 16, 4), over their flag grids, with and without the read
 plane, the hier rule and the fold, and its recycle purge alone, with the
 reference's bit-exact traps injected, and at 4,096 groups for every peer
-width and (V, E, R) in {(16, 16, 4), (1, 1, 1), the caps (1024, 32, 8)}.
-Each of phases 3 to 10 drives a main path: the launch counters are
+width and (V, E, R) in {(16, 16, 4), (1, 1, 1), the caps (1024, 32, 8)};
+and the R-round scans (``csrc/quorum_multistep.cu``) at 65,536 x 5, R =
+16, 4,096 events a round with the sparse traps, over do_tick x
+track_contact x has_votes x has_hier, and at 4,096 groups for every peer
+width, and the staged ladder dispatch at 131,072 x 3 from a
+``ladder.build_state`` state for R in {1, 7, 256} and at 4,096 groups
+for every width.  Each of phases 3 to 12 drives a main path: the launch counters are
 zeroed just before it and read just after, and every kernel that path
 runs must have launched.  JSON lines report what was measured; the line
 before the last is the card's name and power limit, the last line the
@@ -119,6 +137,14 @@ TPU_KERNELS = {  # the JAX function each CUDA kernel replaces
     # alone at rung 4's K = 16 shape
     "kv_plane": ("dragonboat_tpu_torch/csrc/kv_plane.cu",
                  "dragonboat_tpu/ops/kernels.py:402"),
+    # the R-round scans (B13), timed at the multistep main path's shape
+    "quorum_multistep": ("dragonboat_tpu_torch/csrc/quorum_multistep.cu",
+                         "dragonboat_tpu/ops/kernels.py:802"),
+    "quorum_multistep_dense": ("dragonboat_tpu_torch/csrc/quorum_multistep.cu",
+                               "dragonboat_tpu/ops/kernels.py:872"),
+    # the pipelined ladder's dispatch (B8), timed at the headline shape
+    "staged_multistep": ("dragonboat_tpu_torch/csrc/quorum_multistep.cu",
+                         "bench.py:131"),
 }
 STEP_KERNELS = ("quorum_step_dense", "quorum_step", "quorum_multiround")
 
@@ -510,6 +536,8 @@ def _entries(tk, name):
         "quorum_step_dense": (tk.quorum_step_dense, tk.quorum_step_dense_impl),
         "quorum_step": (tk.quorum_step, tk.quorum_step_impl),
         "quorum_multiround": (tk.quorum_multiround, tk.quorum_multiround_impl),
+        "quorum_multistep": (tk.quorum_multistep, tk.quorum_multistep_impl),
+        "quorum_multistep_dense": (tk.quorum_multistep_dense, tk.quorum_multistep_dense_impl),
     }[name]
 
 
@@ -861,7 +889,179 @@ def _time_telem(torch, ts, tk, dev, g, p, k, count_reads, count_kv, seed=31_000)
     }, err
 
 
-def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
+# the R-round scans (B13) at the multistep main path's shape, and the
+# staged ladder dispatch (B8) at the headline's
+MS_G, MS_R, MS_CAP = 65_536, 16, 4096
+MS_FLAGS = [dict(do_tick=t, track_contact=c, has_votes=v, has_hier=h)
+            for t in (False, True) for c in (False, True)
+            for v in (False, True) for h in (False, True)]
+# the variant the multistep main path runs, timed at its shape
+MS_VARIANT = dict(do_tick=True, track_contact=True, has_votes=True, has_hier=True)
+LADDER_G, LADDER_R = 131_072, 256
+STAGED_ROUNDS = (1, 7, LADDER_R)
+MULTISTEPS = ("quorum_multistep", "quorum_multistep_dense")
+
+
+def multistep_traps(fields):
+    """Match cells at INDEX_MIN and below zero: the sparse ingest keeps an
+    untouched one, the dense ingest raises it to 0."""
+    p = fields["match"].shape[1]
+    fields["match"][::7, 0] = np.iinfo(np.int32).min
+    fields["match"][3::11, p - 1] = -4
+
+
+def multistep_inputs(name, seed, r, g, p, cap):
+    """R rounds of the scan's inputs: for the sparse scan ``sparse_inputs``
+    each round (its traps included: a valid ack on a row out of range and
+    one on a slot out of range, invalid padding) with some negative acks;
+    for the dense scan ``dense_inputs`` each round with negative acks on
+    touched cells."""
+    if name == "quorum_multistep":
+        rounds = [sparse_inputs(seed + k, g, p, cap) for k in range(r)]
+        acks = [np.stack([rd[0][i] for rd in rounds]) for i in range(4)]
+        votes = [np.stack([rd[1][i] for rd in rounds]) for i in range(4)]
+        acks[2][:, 8:16] = -3
+        return tuple(acks), tuple(votes)
+    rounds = [dense_inputs(seed + k, g, p) for k in range(r)]
+    am, at, vn = (np.stack([rd[i] for rd in rounds]) for i in range(3))
+    am[:, ::13, 0], at[:, ::13, 0] = -2, True
+    return ((am, at, vn),)
+
+
+def multistep_bytes(name, inputs, flags, before, after):
+    """Bytes one scan must move on this run's data: the state it reads
+    once, its inputs (the events, or the (R, G, P) planes), the state
+    cells it changes and its five (G,) flag outputs.  The sparse scan's
+    scratch planes are its own traffic and not counted."""
+    g, p = before.match.shape
+    if name == "staged_multistep":
+        n_in = 0
+    elif name == "quorum_multistep":
+        acks, votes = inputs
+        n_in = sum(a.nbytes for a in acks) + (
+            sum(a.nbytes for a in votes) if flags["has_votes"] else 0)
+    else:
+        am, at, vn = inputs[0]
+        n_in = am.nbytes + at.nbytes + (vn.nbytes if flags["has_votes"] else 0)
+    return (state_read_bytes(g, p, flags) + n_in
+            + state_written_bytes(before, after) + 5 * g)
+
+
+def _staged_pair(torch, ts, tk, fields, dev, base, rounds):
+    st_k = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
+    kout = tk.staged_multistep(st_k, base, rounds)
+    pout = tk.staged_multistep_impl(st_p, base, rounds)
+    torch.cuda.synchronize()
+    return kout, pout
+
+
+def _time_multistep(torch, ts, tk, dev, name, flags, fields, inputs, rounds,
+                    base=1):
+    """Device time of one scan's launch (30, each from the restored
+    state), its bound over this run's data (``kernel_ops`` with k = R) and
+    the plain version's wall time; the launch is held against the plain
+    version."""
+    g, p = fields["match"].shape
+    st_k = ts.state_from_numpy(fields, dev)
+    st_p = ts.state_from_numpy(fields, dev)
+    if name == "staged_multistep":
+        kern = lambda: tk.staged_multistep(st_k, base, rounds)  # noqa: E731
+        plain = lambda: tk.staged_multistep_impl(st_p, base, rounds)  # noqa: E731
+        flags = dict(do_tick=True, track_contact=False, has_votes=False)
+    else:
+        entry, plain_fn = _entries(tk, name)
+        args = _device_args(torch, inputs, dev)
+        kern = lambda: entry(st_k, *args, **flags)  # noqa: E731
+        plain = lambda: plain_fn(st_p, *args, **flags)  # noqa: E731
+    saved = [t.clone() for t in st_k]
+
+    def reset():
+        for t, s0 in zip(st_k, saved):
+            t.copy_(s0)
+
+    pout = plain()
+    nbytes = multistep_bytes(name, inputs, flags, st_p, pout.state)
+    b_ms, b_by = bound_ms(nbytes, kernel_ops(g, p, k=rounds))
+    ms = device_ms(torch, kern, reset)
+    reset()
+    err = _equal_outputs(torch, ts, tk, kern(), pout, f"{name} timed R={rounds}")
+    return {
+        "ms": ms, "plain_ms": wall_ms(torch, plain, iters=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "ops": kernel_ops(g, p, k=rounds),
+        "shape": {"G": g, "P": p, "R": rounds,
+                  **({"events": MS_CAP} if name == "quorum_multistep" else {})},
+        "flags": flags,
+    }, err
+
+
+def phase_multistep_kernels(torch, ts, tk, dev, ladder_mod, record, p=5):
+    """B13a and B13b against their plain versions at 65,536 x 5, R = 16
+    (``cap`` = 4,096 events a round for the sparse scan) over the flag
+    grid, and at 4,096 groups for every peer width; B8 at 131,072 x 3
+    from a ``build_state``'d state for R in {1, 7, 256}, and at 4,096
+    groups for every width from a random state; then each timed."""
+    n = 0
+    for name in MULTISTEPS:
+        for i, flags in enumerate(MS_FLAGS):
+            seed = 90_000 + 100 * MULTISTEPS.index(name) + i
+            fields = random_fields(ts, seed, MS_G, p)
+            multistep_traps(fields)
+            inputs = multistep_inputs(name, seed, MS_R, MS_G, p, MS_CAP)
+            kout, pout = _run_pair(torch, ts, tk, name, fields, inputs, flags, dev)
+            record(name, flags, _equal_outputs(torch, ts, tk, kout, pout, f"{name} {flags}"))
+            n += 1
+        for width in (1, 2, 3, 4, 5, 6, 7, 8, 12):
+            for j, flags in enumerate((MS_FLAGS[-1], MS_FLAGS[0], MS_FLAGS[9])):
+                seed = 91_000 + 100 * width + 10 * MULTISTEPS.index(name) + j
+                fields = random_fields(ts, seed, 4096, width)
+                multistep_traps(fields)
+                inputs = multistep_inputs(name, seed, 4, 4096, width, 1024)
+                kout, pout = _run_pair(torch, ts, tk, name, fields, inputs, flags, dev)
+                record(name, flags, _equal_outputs(
+                    torch, ts, tk, kout, pout, f"{name} P={width} {flags}"))
+                n += 1
+    t0 = time.perf_counter()
+    eng = ladder_mod.build_state(LADDER_G, 64, device=dev)
+    built = ts.state_to_numpy(eng.dev)
+    build_s = time.perf_counter() - t0
+    del eng
+    for rounds in STAGED_ROUNDS:
+        kout, pout = _staged_pair(torch, ts, tk, built, dev, 1, rounds)
+        check(bool((kout.committed == 1 + rounds).all()),
+              f"staged_multistep R={rounds}: a watermark is not base + R")
+        record("staged_multistep", {}, _equal_outputs(
+            torch, ts, tk, kout, pout, f"staged_multistep R={rounds}"))
+        n += 1
+    for width in (1, 2, 3, 4, 5, 6, 7, 8, 12):
+        for rounds, base in ((7, 5), (9, 2**31 - 4)):
+            fields = random_fields(ts, 92_000 + width, 4096, width)
+            kout, pout = _staged_pair(torch, ts, tk, fields, dev, base, rounds)
+            record("staged_multistep", {}, _equal_outputs(
+                torch, ts, tk, kout, pout, f"staged_multistep P={width} R={rounds}"))
+            n += 1
+    emit({"phase": "multistep_vs_plain", "compared": n, "build_state_s": build_s})
+    timings = {}
+    for name in MULTISTEPS:
+        fields = random_fields(ts, 93_000, MS_G, p)
+        multistep_traps(fields)
+        inputs = multistep_inputs(name, 93_000, MS_R, MS_G, p, MS_CAP)
+        timings[name], err = _time_multistep(torch, ts, tk, dev, name, MS_VARIANT,
+                                             fields, inputs, MS_R)
+        record(name, MS_VARIANT, err)
+        emit({"phase": "kernel_time", "name": name, **timings[name]})
+    for rounds in STAGED_ROUNDS:
+        t, err = _time_multistep(torch, ts, tk, dev, "staged_multistep", None, built,
+                                 None, rounds)
+        record("staged_multistep", {}, err)
+        emit({"phase": "kernel_time", "name": f"staged_multistep[R={rounds}]", **t})
+        if rounds == LADDER_R:
+            timings["staged_multistep"] = t
+    return n, timings
+
+
+def phase_kernels(torch, ts, tk, dev, ladder_mod, g=100_000, p=5):
     compared = 0
     max_err = dict.fromkeys(TPU_KERNELS, 0)
 
@@ -990,9 +1190,12 @@ def phase_kernels(torch, ts, tk, dev, g=100_000, p=5):
         emit({"phase": "kernel_time", "name": "telem_fold", **t})
         if not reads:
             timings["telem_fold"] = t
+    n_ms, ms_timings = phase_multistep_kernels(torch, ts, tk, dev, ladder_mod, record)
+    timings.update(ms_timings)
     for name in timings:
         timings[name]["max_abs_err"] = max_err[name]
-    emit({"phase": "kernels_checked", "compared": compared, "max_abs_err": max_err})
+    emit({"phase": "kernels_checked", "compared": compared, "multistep_compared": n_ms,
+          "max_abs_err": max_err})
     return timings
 
 
@@ -2208,6 +2411,197 @@ def phase_devsm_ops(torch, engine_mod, dev):
 
 
 # ----------------------------------------------------------------------
+# phase 11: the device ladder (bench.py's pipelined, latency-bounded and
+# host-loop modes)
+# ----------------------------------------------------------------------
+
+
+def _mode_line(out):
+    ms = out.pop("dispatch_ms")
+    return dict(out, dispatch_ms_p50=_p(ms, 50), dispatch_ms_p99=_p(ms, 99))
+
+
+def phase_ladder(ladder_mod, dev):
+    """``bench.py``'s ladder through the port: the pipelined headline
+    (131,072 groups x 3, R = 256, acks made on the device by
+    ``staged_multistep``, 3 warm-up and 5 measured dispatches), the
+    latency-bounded mode (1,024 groups, R = 1, 5 + 50) and the host loop
+    (65,536 groups, K = 16, 8 dispatches through the engine's
+    ``ack_block_rounds`` and K3).  Every dispatch's watermarks are checked
+    on every row; setup (the engine's add_group / set_leader loop) is
+    timed apart from the measured window."""
+    out = {"phase": "ladder"}
+    t0 = time.perf_counter()
+    out["pipelined"] = dict(_mode_line(ladder_mod.run_mode(
+        LADDER_G, LADDER_R, 5, warmup=3, device=dev)), acks="device-synthesised")
+    out["latency"] = dict(_mode_line(ladder_mod.run_mode(
+        1024, 1, 50, warmup=5, device=dev)), acks="device-synthesised")
+    out["host_loop"] = dict(_mode_line(ladder_mod.run_host_loop(
+        65_536, 8, k=16, device=dev)), acks="host-staged")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 12: an R-round host pipeline through both scans and K2
+# ----------------------------------------------------------------------
+
+
+def _multistep_pipeline(n, r, base):
+    """R rounds of host-staged events for an engine of ``n`` groups x 5
+    whose rows cycle leader, leader, hier leader, candidate, candidate,
+    follower: every leader acks ``base + 1 + k`` on slots 0 and 1 in round
+    k, and on slot 2 too, two behind on the hier leaders (near slots
+    {0,1,2}, sub-quorum 2, so only the hier rule commits them to the
+    top); stale duplicates; every other follower hears its leader (a zero
+    ack); the first candidates win in round 1 (self and slots 1, 2 grant),
+    the second lose in round 2 (slots 1, 2, 3 reject); invalid padding and
+    a valid ack on a row out of range.  Returns the (R, cap) acks and
+    (R, vcap) votes and the rows of each role."""
+    rows = np.arange(n, dtype=np.int32)
+    role = rows % 6
+    lead, hier = rows[role <= 2], rows[role == 2]
+    cand_w, cand_l, foll = rows[role == 3], rows[role == 4], rows[role == 5]
+    ag, ap, av = [], [], []
+    for k in range(r):
+        v = base + 1 + k
+        lag = np.where(role[lead] == 2, v - 2, v)
+        g_k = np.concatenate([lead, lead, lead, lead[::5], foll[::2], [n + 3]])
+        p_k = np.concatenate([np.zeros_like(lead), np.ones_like(lead), np.full_like(lead, 2),
+                              np.ones_like(lead[::5]), np.zeros_like(foll[::2]), [0]])
+        v_k = np.concatenate([np.full(lead.size, v), np.full(lead.size, v), lag,
+                              np.full(lead[::5].size, v - 3), np.zeros(foll[::2].size), [v]])
+        ag.append(g_k), ap.append(p_k), av.append(v_k)
+    cap = ag[0].size + 64
+    acks = [np.zeros((r, cap), np.int32) for _ in range(3)] + [np.zeros((r, cap), bool)]
+    for k in range(r):
+        m = ag[k].size
+        acks[0][k, :m], acks[1][k, :m], acks[2][k, :m] = ag[k], ap[k], av[k]
+        acks[3][k, :m] = True
+        acks[0][k, m:] = k % n  # invalid padding pointing at real rows
+    vg_w = np.repeat(cand_w, 3)
+    vp_w = np.tile(np.array([0, 1, 2], np.int32), cand_w.size)
+    vg_l = np.repeat(cand_l, 3)
+    vp_l = np.tile(np.array([1, 2, 3], np.int32), cand_l.size)
+    vcap = max(vg_w.size, vg_l.size)
+    votes = [np.zeros((r, vcap), np.int32) for _ in range(2)] + [
+        np.zeros((r, vcap), np.int8), np.zeros((r, vcap), bool)]
+    for k, (vg, vp, grant) in ((1, (vg_w, vp_w, 1)), (2, (vg_l, vp_l, 0))):
+        votes[0][k, :vg.size], votes[1][k, :vg.size] = vg, vp
+        votes[2][k, :vg.size], votes[3][k, :vg.size] = grant, True
+    return tuple(acks), tuple(votes), (lead, hier, cand_w, cand_l, foll)
+
+
+def _collapse(acks, votes, n, p):
+    """The sparse rounds as the dense scan's (R, G, P) planes: each cell's
+    max ack (0 where untouched), its touched bit, and its vote."""
+    ag, ap, av, valid = acks
+    r = ag.shape[0]
+    am = np.full((r, n, p), np.iinfo(np.int32).min, np.int64)
+    at = np.zeros((r, n, p), bool)
+    vn = np.full((r, n, p), -1, np.int8)
+    for k in range(r):
+        ok = valid[k] & (ag[k] >= 0) & (ag[k] < n) & (ap[k] >= 0) & (ap[k] < p)
+        np.maximum.at(am[k], (ag[k][ok], ap[k][ok]), av[k][ok])
+        at[k][ag[k][ok], ap[k][ok]] = True
+        vok = votes[3][k]
+        vn[k][votes[0][k][vok], votes[1][k][vok]] = votes[2][k][vok]
+    return (np.where(at, am, 0).astype(np.int32), at, vn)
+
+
+def phase_multistep(torch, engine_mod, tk, ts, dev, n=65_536, r=16):
+    """An R = 16 host pipeline at 65,536 groups x 5 with ticks (heartbeats,
+    check-quorum windows and election timeouts fire inside the block),
+    votes and the hier rule on a third of the leaders, from an engine
+    built on the card, run three ways from the same state: ``quorum_multistep`` on the
+    sparse rounds, ``quorum_multistep_dense`` on their numpy collapse, and
+    R launches of K2 (``quorum_step``) with the flags OR-ed; the three must
+    give bit-equal states and flags, equal to the CPU's plain scan, and
+    every leader must commit the last index."""
+    t0 = time.perf_counter()
+    eng = engine_mod.BatchedQuorumEngine(n, 5, device_ticks=True, device=dev)
+    peers = [1, 2, 3, 4, 5]
+    for cid in range(1, n + 1):
+        role = (cid - 1) % 6
+        # clocks that expire inside the block: the check-quorum window
+        # every 5 ticks on the leaders, elections after 10
+        eng.add_group(cid, node_ids=peers, self_id=1, election_timeout=5,
+                      check_quorum=role <= 2)
+        if role <= 2:
+            eng.set_leader(cid, term=1, term_start=1, last_index=1)
+        if role == 2:
+            eng.set_hier(cid, near_ids=[1, 2, 3], sub_quorum=2)
+        elif role in (3, 4):
+            eng.set_candidate(cid, term=2)
+    eng._upload_dirty()
+    fields = ts.state_to_numpy(eng.dev)
+    setup_s = time.perf_counter() - t0
+    base = 1
+    acks, votes, (lead, hier, cand_w, cand_l, foll) = _multistep_pipeline(n, r, base)
+    dense = _collapse(acks, votes, n, 5)
+    flags = MS_VARIANT
+    sp_args = [torch.from_numpy(a).to(dev) for a in acks + votes]
+    de_args = [torch.from_numpy(a).to(dev) for a in dense]
+    routes, wall = {}, {}
+
+    def run(label, fn):
+        st = ts.state_from_numpy(fields, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(st)
+        torch.cuda.synchronize()
+        wall[label] = (time.perf_counter() - t) * 1e3
+        routes[label] = out
+
+    run("quorum_multistep", lambda st: tk.quorum_multistep(st, *sp_args, **flags))
+    run("quorum_multistep_dense", lambda st: tk.quorum_multistep_dense(st, *de_args, **flags))
+
+    def k2_rounds(st):
+        acc = None
+        for k in range(r):
+            out = tk.quorum_step(st, *(a[k] for a in sp_args), **flags)
+            got = [out.won, out.lost, *out.flags]
+            acc = got if acc is None else [a | b for a, b in zip(acc, got)]
+        return tk.StepOutputs(st, st.committed, acc[0], acc[1], tk.TickFlags(*acc[2:]))
+
+    run("quorum_step_x16", k2_rounds)
+    cpu_st = ts.state_from_numpy(fields, "cpu")
+    t = time.perf_counter()
+    cpu = tk.quorum_multistep(cpu_st, *(torch.from_numpy(a) for a in acks + votes), **flags)
+    wall["cpu_plain"] = (time.perf_counter() - t) * 1e3
+    ref = routes["quorum_multistep"]
+    for label, out in routes.items():
+        if label != "quorum_multistep":
+            _equal_outputs(torch, ts, tk, out, ref, f"multistep path: {label} vs quorum_multistep")
+    got = ts.state_to_numpy(ref.state)
+    want = ts.state_to_numpy(cpu.state)
+    for name in want:
+        check(np.array_equal(got[name], want[name]),
+              f"multistep path: state field {name} differs between the card and the CPU")
+    fired = {}
+    for name, a, b in zip(("won", "lost") + tk.TickFlags._fields,
+                          (ref.won, ref.lost) + tuple(ref.flags),
+                          (cpu.won, cpu.lost) + tuple(cpu.flags)):
+        a = a.cpu().numpy()
+        check(np.array_equal(a, b.numpy()), f"multistep path: {name} differs between the card and the CPU")
+        fired[name] = int(a.sum())
+    committed = got["committed"]
+    check(np.all(committed[lead] == base + r), "multistep path: a leader's watermark is not the last index")
+    check(np.array_equal(np.flatnonzero(ref.won.cpu().numpy()), cand_w),
+          "multistep path: the winning candidates differ")
+    check(np.array_equal(np.flatnonzero(ref.lost.cpu().numpy()), cand_l),
+          "multistep path: the losing candidates differ")
+    check(all(fired.values()), f"multistep path: a flag never fired: {fired}")
+    out = {"phase": "multistep", "groups": n, "peer_slots": 5, "rounds": r,
+           "events_per_round": int(acks[0].shape[1]), "hier_rows": int(hier.size),
+           "routes_equal": sorted(routes), "flags_fired": fired,
+           "wall_ms": wall, "setup_s": setup_s}
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
 
 
 def _registers(log):
@@ -2258,6 +2652,7 @@ def main(argv) -> int:
         from dragonboat_tpu_torch.ops import engine as engine_mod
         from dragonboat_tpu_torch.ops import kernels as tk
         from dragonboat_tpu_torch.ops import state as ts
+        from dragonboat_tpu_torch import ladder as ladder_mod
     except ImportError as e:
         print(f"chip_smoke: the dragonboat_tpu_torch package is missing: {e}",
               file=sys.stderr)
@@ -2276,7 +2671,7 @@ def main(argv) -> int:
               "registers_max": _registers(log), "frames": _frames(log)})
         if only is None:
             t0 = time.perf_counter()
-            timings = phase_kernels(torch, ts, tk, dev)
+            timings = phase_kernels(torch, ts, tk, dev, ladder_mod)
             emit({"phase": "kernels_seconds", "seconds": time.perf_counter() - t0})
         launches = dict.fromkeys(TPU_KERNELS, 0)
         ran = set()
@@ -2321,6 +2716,10 @@ def main(argv) -> int:
                   ("quorum_multiround", "kv_plane"))
         main_path("devsm_op_script", lambda: phase_devsm_ops(torch, engine_mod, dev),
                   STEP_KERNELS + ("finish_hier", "telem_fold", "kv_plane"))
+        main_path("ladder", lambda: phase_ladder(ladder_mod, dev),
+                  ("staged_multistep", "quorum_multiround"))
+        main_path("multistep", lambda: phase_multistep(torch, engine_mod, tk, ts, dev),
+                  MULTISTEPS)
         if only is not None:
             check(only <= ran, f"no main path named {sorted(only - ran)}")
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})

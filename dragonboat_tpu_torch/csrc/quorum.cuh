@@ -5,8 +5,10 @@
 // (:619, with the has_hier branch :640-650 as the HIER template flag),
 // read_confirm (:331) and _read_plane (:362) as read_plane (the READS
 // template flag of K1 and K3), quorum_step_impl (:520),
-// quorum_step_dense_impl (:686), _apply_recycle (:931) and
-// quorum_multiround_impl (:1021).
+// quorum_step_dense_impl (:686), _apply_recycle (:931),
+// quorum_multiround_impl (:1021), and the R-round scans
+// quorum_multistep_impl (:802), quorum_multistep_dense_impl (:872) and
+// bench.py's _staged_multistep_fn (:131) as multistep_kernel.
 //
 // Design.  Every update of the quorum engine is row-wise over groups: no
 // group reads another group's row.  So every kernel here runs one thread
@@ -70,6 +72,11 @@ typedef void* cudaStream_t;
 #define cudaErrorInvalidValue 1
 inline int atomicMax(int* a, int v) {
   int o = *a;
+  if (v > o) *a = v;
+  return o;
+}
+inline unsigned atomicMax(unsigned* a, unsigned v) {
+  unsigned o = *a;
   if (v > o) *a = v;
   return o;
 }
@@ -850,6 +857,123 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
     clear_reads(rr);
     store_reads(rr, r, rd, g);
   }
+}
+
+// The sparse multistep's scratch holds each round's ack maxima biased to
+// unsigned (v ^ 0x80000000), so that unsigned order is int32 order and a
+// zero fill is INT32_MIN, the identity of max.
+QS_HD uint32_t bias(int32_t v) { return (uint32_t)v ^ 0x80000000u; }
+QS_HD int32_t unbias(uint32_t u) { return (int32_t)(u ^ 0x80000000u); }
+
+// Pre-pass of the sparse multistep (quorum_multistep_impl): R rounds of
+// padded events, ``cap`` acks and ``vcap`` votes a round, scatter into
+// per-round planes the launcher zeroed — the biased ack max (R, G, P),
+// the touched bits (R, G, P) and the contacted rows (R, G) — and the
+// votes into an (R, G, P) plane the launcher filled with VOTE_NONE.  The
+// sparse step's own ingest: a valid ack whose row is in [0, G) marks the
+// row contacted even where its slot is out of range; events outside
+// [0, G) x [0, P) are dropped; a round holds each vote cell at most once.
+template <bool TRACK, bool VOTES>
+__global__ void multistep_scatter_kernel(
+    int G, int P, const int32_t* ack_g, const int32_t* ack_p,
+    const int32_t* ack_val, const bool* ack_valid, long long n_acks, int cap,
+    const int32_t* vote_g, const int32_t* vote_p, const int8_t* vote_grant,
+    const bool* vote_valid, long long n_votes, int vcap, uint32_t* sc_max,
+    bool* sc_touched, int8_t* sc_vote, bool* sc_contacted) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_acks && ack_valid[i]) {
+    const int32_t g = ack_g[i], p = ack_p[i];
+    if (g >= 0 && g < G) {
+      const size_t rg = (size_t)(i / cap) * G + g;
+      if (TRACK) sc_contacted[rg] = true;
+      if (p >= 0 && p < P) {
+        const size_t cell = rg * P + p;
+        atomicMax(&sc_max[cell], bias(ack_val[i]));
+        sc_touched[cell] = true;
+      }
+    }
+  }
+  if (VOTES && i < n_votes && vote_valid[i]) {
+    const int32_t g = vote_g[i], p = vote_p[i];
+    if (g >= 0 && g < G && p >= 0 && p < P)
+      sc_vote[((size_t)(i / vcap) * G + g) * P + p] = vote_grant[i];
+  }
+}
+
+// B13 and B8: R engine rounds in one launch, the row in registers across
+// all of them; the state is read once and written once, the flags OR over
+// the rounds.  Each round ingests, then runs the tail with its tick
+// (finish, DO_TICK: every round ticks).  The ingest, per round k:
+// * planes (STAGED false): ``touched`` and ``ack`` (R, G, P), and votes
+//   ``vote_new`` (R, G, P) merged first-wins.  Dense (quorum_multistep_
+//   dense_impl): match = max(match, touched ? ack : 0) and contact where
+//   any cell is touched.  ``sparse`` (quorum_multistep_impl, on the
+//   pre-pass's planes): ``ack`` is the biased scratch, an untouched cell
+//   keeps its match (the dense form would raise a negative one to 0) and
+//   the contact comes from ``contacted`` (R, G);
+// * STAGED (bench.py _staged_multistep_fn): no input; slots 0 and 1 are
+//   touched with base_index + 1 + k, the dense form, the flags returned
+//   are zeros as the reference returns.
+// ``track`` (track_contact) and ``sparse`` are launch arguments.
+template <int P, bool DO_TICK, bool VOTES, bool HIER, bool STAGED>
+__global__ void multistep_kernel(State s, const int32_t* ack,
+                                 const bool* touched, const int8_t* vote_new,
+                                 const bool* contacted, int n_rounds,
+                                 int32_t base_index, bool track, bool sparse,
+                                 Flags f) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= s.G) return;
+  Row<P> r;
+  load_row(r, s, g);
+  if (HIER) load_hier(r, s, g);
+  const int p = width(r);
+  bool won = false, lost = false, e = false, h = false, c = false;
+  for (int k = 0; k < n_rounds; ++k) {
+    const size_t cells = ((size_t)k * s.G + g) * p;
+    bool hit = false;
+    QS_UNROLL
+    for (int i = 0; i < p; ++i) {
+      bool t;
+      int32_t a;
+      if (STAGED) {
+        t = i < 2;
+        a = t ? wadd(wadd(base_index, 1), k) : 0;
+      } else {
+        t = touched[cells + i];
+        a = ack[cells + i];
+        if (sparse) a = unbias((uint32_t)a);
+      }
+      if (t)
+        r.match[i] = imax(r.match[i], a);
+      else if (!sparse)
+        r.match[i] = imax(r.match[i], 0);
+      r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
+      r.active[i] = r.active[i] || t;
+      hit = hit || t;
+    }
+    if (!STAGED && sparse && track) hit = contacted[(size_t)k * s.G + g];
+    if (track && hit && r.node_state != LEADER && r.live) r.election_tick = 0;
+    r.last_index = imax(r.last_index, self_column(r));
+    if (VOTES) {
+      QS_UNROLL
+      for (int i = 0; i < p; ++i) {
+        const int8_t v = vote_new[cells + i];
+        if (r.votes[i] == VOTE_NONE && v != VOTE_NONE) r.votes[i] = v;
+      }
+    }
+    bool w, l, e0, h0, c0;
+    finish<P, DO_TICK, HIER>(r, s, g, w, l, e0, h0, c0);
+    won = won || w;
+    lost = lost || l;
+    e = e || e0;
+    h = h || h0;
+    c = c || c0;
+  }
+  store_row<P, VOTES, false>(r, s, g);
+  if (STAGED)
+    store_flags(f, g, false, false, false, false, false);
+  else
+    store_flags(f, g, won, lost, e, h, c);
 }
 
 // --- host-side dispatch from runtime flags to template instances --------

@@ -5,7 +5,8 @@ Modules:
 * :mod:`.state`   — the ``QuorumState`` layout, ``HostMirror`` and the
   numpy carry-across (``state_from_numpy`` / ``state_to_numpy``)
 * :mod:`.kernels` — plain PyTorch versions and the CUDA kernel wrappers
-  (``quorum_step``, ``quorum_step_dense``, ``quorum_multiround``)
+  (``quorum_step``, ``quorum_step_dense``, ``quorum_multiround``,
+  ``quorum_multistep``, ``quorum_multistep_dense``, ``staged_multistep``)
 * :mod:`.engine`  — ``BatchedQuorumEngine``, the host side of the engine
 * :mod:`._build`  — builds and binds ``csrc/`` at first use
 """
@@ -24,6 +25,8 @@ from .kernels import (  # noqa: F401
     commit_quorum,
     launch_counts,
     quorum_multiround,
+    quorum_multistep,
+    quorum_multistep_dense,
     quorum_step,
     quorum_step_dense,
     reset_launch_counts,

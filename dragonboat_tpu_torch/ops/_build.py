@@ -27,7 +27,8 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("quorum_step_dense.cu", "quorum_step_dense_reads.cu",
            "quorum_step.cu", "quorum_multiround.cu",
-           "quorum_multiround_reads.cu", "telem_fold.cu", "kv_plane.cu")
+           "quorum_multiround_reads.cu", "telem_fold.cu", "kv_plane.cu",
+           "quorum_multistep.cu")
 HEADERS = ("quorum.cuh", "launch.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + [
@@ -117,6 +118,18 @@ _SIGNATURES = {
     "qs_telem": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP],
     # qs_kv_plane(kv, flags, stream)
     "qs_kv_plane": [_VP, _INT, _VP],
+    # qs_multistep_dense(state, ack_max, touched, vote_new, n_rounds,
+    #                    flags_out, flags, stream)
+    "qs_multistep_dense": [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP],
+    # qs_multistep(state, ack_g, ack_p, ack_val, ack_valid, n_acks, vote_g,
+    #              vote_p, vote_grant, vote_valid, n_votes, n_rounds,
+    #              sc_max, sc_touched, sc_vote, sc_contacted, flags_out,
+    #              flags, stream)
+    "qs_multistep": [_VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _INT,
+                     _INT, _VP, _VP, _VP, _VP, _VP, _INT, _VP],
+    # qs_staged_multistep(state, base_index, n_rounds, flags_out, flags,
+    #                     stream)
+    "qs_staged_multistep": [_VP, _INT, _INT, _VP, _INT, _VP],
 }
 
 

@@ -4,12 +4,14 @@ wrappers that launch the hand-written CUDA kernels.
 Counterpart: ``dragonboat_tpu/ops/kernels.py``.  Each ``*_impl`` function
 and helper here follows its JAX twin line by line and is functional (it
 returns new tensors).  The entry points :func:`quorum_step`,
-:func:`quorum_step_dense`, :func:`quorum_multiround` and
+:func:`quorum_step_dense`, :func:`quorum_multiround`,
+:func:`quorum_multistep`, :func:`quorum_multistep_dense` and
 :func:`telem_fold` keep the reference's names, argument order and static
-flags, and update the state tensors IN PLACE where the reference donated
-them (``donate_argnums=(0,)``): the returned ``StepOutputs.state`` is the
-caller's state, and ``StepOutputs.committed`` is its ``committed``
-tensor.  With ``has_telem`` a step's ``StepOutputs.telem`` is the
+flags, and :func:`staged_multistep` is ``bench.py``'s
+``_staged_multistep_fn``.  All update the state tensors IN PLACE where
+the reference donated them (``donate_argnums=(0,)``): the returned
+``StepOutputs.state`` is the caller's state, and
+``StepOutputs.committed`` is its ``committed`` tensor.  With ``has_telem`` a step's ``StepOutputs.telem`` is the
 :class:`TelemAggregate` of the fold run after it, whose fields are views
 of one fixed-size int32 block (:func:`telem_block`).  With ``has_reads``
 the dense and K-round steps run the device read plane (:func:`_read_plane`)
@@ -33,9 +35,13 @@ launch of a step kernel's ``has_hier`` instance also counts under
 ``has_reads`` instance under ``read_plane``.  The device state machine is
 a kernel of its own (``csrc/kv_plane.cu``, counter ``kv_plane``), launched
 after K1 or K3 on the same stream; a K-round block passes it each
-round's watermark through a (K, G) trace that K3 writes.
+round's watermark through a (K, G) trace that K3 writes.  The R-round
+scans and the staged ladder dispatch share one row loop
+(``csrc/quorum_multistep.cu``), counted under ``quorum_multistep``,
+``quorum_multistep_dense`` and ``staged_multistep``.
 
-Contract on event indexes: the sparse step drops events whose row or slot
+Contract on event indexes: the sparse step (and the sparse scan, round by
+round) drops events whose row or slot
 lies outside ``[0, G) x [0, P)``.  The JAX step routes invalid events to
 row G and drops them too, but wraps a NEGATIVE valid index the way numpy
 indexing does; the engine never stages one.  A batch holds each (row,
@@ -111,7 +117,9 @@ _SORT_NETWORKS = {
 }
 
 _LAUNCHES = {"quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
-             "telem_fold": 0, "finish_hier": 0, "read_plane": 0, "kv_plane": 0}
+             "telem_fold": 0, "finish_hier": 0, "read_plane": 0, "kv_plane": 0,
+             "quorum_multistep": 0, "quorum_multistep_dense": 0,
+             "staged_multistep": 0}
 
 
 def launch_counts() -> dict:
@@ -724,6 +732,94 @@ def quorum_multiround_impl(
     )
 
 
+def _or_rounds(st: QuorumState, outs) -> StepOutputs:
+    """The multistep egress: the final state and watermark, and won,
+    lost and the three tick flags OR-ed over the rounds' outputs."""
+    zeros = torch.zeros((st.match.shape[0],), dtype=BOOL, device=st.match.device)
+    acc = [zeros] * 5
+    for out in outs:
+        acc = [a | b for a, b in zip(acc, (out.won, out.lost) + tuple(out.flags))]
+    return StepOutputs(st, st.committed, acc[0], acc[1], TickFlags(*acc[2:]))
+
+
+def quorum_multistep_impl(
+    st: QuorumState,
+    ack_g, ack_p, ack_val, ack_valid,      # (R, cap) — R rounds of event batches
+    vote_g, vote_p, vote_grant, vote_valid,  # (R, vcap), or dummies without has_votes
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_hier: bool = False,
+) -> StepOutputs:
+    """R sparse rounds: :func:`quorum_step_impl` on each round's events in
+    turn (the reference's ``lax.scan``).  Returns the final state and
+    watermark with won, lost and the tick flags OR-ed over the rounds.
+    With ``has_votes=False`` the vote arguments are not read."""
+    outs = []
+    for r in range(ack_g.shape[0]):
+        votes_r = ((vote_g[r], vote_p[r], vote_grant[r], vote_valid[r])
+                   if has_votes else (None, None, None, None))
+        out = quorum_step_impl(
+            st, ack_g[r], ack_p[r], ack_val[r], ack_valid[r], *votes_r,
+            do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+            has_hier=has_hier,
+        )
+        st = out.state
+        outs.append(out)
+    return _or_rounds(st, outs)
+
+
+def quorum_multistep_dense_impl(
+    st: QuorumState,
+    ack_max, ack_touched, vote_new,  # (R, G, P); vote_new a dummy without has_votes
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_hier: bool = False,
+) -> StepOutputs:
+    """R dense rounds: :func:`quorum_step_dense_impl` on each round's
+    planes in turn, with the outputs of :func:`quorum_multistep_impl`."""
+    outs = []
+    for r in range(ack_max.shape[0]):
+        out = quorum_step_dense_impl(
+            st, ack_max[r], ack_touched[r], vote_new[r] if has_votes else None,
+            do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+            has_hier=has_hier,
+        )
+        st = out.state
+        outs.append(out)
+    return _or_rounds(st, outs)
+
+
+def staged_multistep_impl(st: QuorumState, base_index: int, rounds: int) -> StepOutputs:
+    """R dense rounds whose acks are made on the device (reference:
+    ``bench.py`` ``_staged_multistep_fn``, with P = 3 there): in round r
+    slots 0 and 1 of every row ack ``base_index + 1 + r`` (int32, wrapping)
+    and the other slots are untouched; every round ticks, contact is not
+    tracked and no vote is read.  The won, lost and tick flags returned are
+    zeros, as the reference returns them."""
+    g, p = st.match.shape
+    dev = st.match.device
+    first_two = torch.arange(p, dtype=I32, device=dev)[None, :] < 2
+    touched = first_two.expand(g, p)
+    base = torch.tensor(_int32(base_index), dtype=I32, device=dev)
+    for r in range(rounds):
+        vals = torch.where(first_two, base + 1 + r, 0).to(I32)
+        out = quorum_step_dense_impl(
+            st, vals.expand(g, p), touched, None,
+            do_tick=True, track_contact=False, has_votes=False,
+        )
+        st = out.state
+    return _or_rounds(st, ())
+
+
+def _int32(value) -> int:
+    value = int(value)
+    if not -2**31 <= value < 2**31:
+        raise ValueError(f"{value} is outside int32")
+    return value
+
+
 # ----------------------------------------------------------------------
 # entry points
 # ----------------------------------------------------------------------
@@ -1312,3 +1408,137 @@ def _multiround_launch(st, dev, ack_max, vote_new, churn, tick_mask, do_tick,
     elif ckv is not None:
         _kv_run(dev, ckv, _KV_RESET)
     return out
+
+
+def quorum_multistep(
+    st: QuorumState,
+    ack_g, ack_p, ack_val, ack_valid,
+    vote_g, vote_p, vote_grant, vote_valid,
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_hier: bool = False,
+) -> StepOutputs:
+    """R sparse rounds of (R, cap) padded events in ONE dispatch, in place
+    (on CUDA ``csrc/quorum_multistep.cu``: the scatter pre-pass, then the
+    row loop).  ``has_votes=False`` leaves the vote arguments unread
+    (they may be dummies of any shape)."""
+    votes_in = (vote_g, vote_p, vote_grant, vote_valid) if has_votes else ()
+    dev = _device_of(st, ack_g, ack_p, ack_val, ack_valid, *votes_in)
+    if dev.type == "cpu":
+        return _write_back(st, quorum_multistep_impl(
+            st, ack_g, ack_p, ack_val, ack_valid,
+            vote_g, vote_p, vote_grant, vote_valid,
+            do_tick=do_tick, track_contact=track_contact, has_votes=has_votes,
+            has_hier=has_hier,
+        ))
+    return _multistep_launch(
+        st, dev, (ack_g, ack_p, ack_val, ack_valid),
+        (vote_g, vote_p, vote_grant, vote_valid), do_tick, track_contact,
+        has_votes, has_hier,
+    )
+
+
+def _multistep_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
+                      has_hier=False):
+    """The pre-pass scatters the events into fresh scratch planes, the
+    row loop ingests them a round at a time."""
+    ack_g, ack_p, ack_val, ack_valid = acks
+    vote_g, vote_p, vote_grant, vote_valid = votes
+    cst = _cstate(st)
+    g, p = st.match.shape
+    rounds, n_acks = ack_g.shape[0], ack_g.shape[-1]
+    for t, name, dt in ((ack_g, "ack_g", I32), (ack_p, "ack_p", I32),
+                        (ack_val, "ack_val", I32), (ack_valid, "ack_valid", BOOL)):
+        _check(t, name, (rounds, n_acks), dt)
+    n_votes = 0
+    if has_votes:
+        n_votes = vote_g.shape[-1]
+        for t, name, dt in ((vote_g, "vote_g", I32), (vote_p, "vote_p", I32),
+                            (vote_grant, "vote_grant", I8),
+                            (vote_valid, "vote_valid", BOOL)):
+            _check(t, name, (rounds, n_votes), dt)
+    else:
+        vote_g = vote_p = vote_grant = vote_valid = None
+    sc_max = torch.empty((rounds, g, p), dtype=I32, device=dev)
+    sc_touched = torch.empty((rounds, g, p), dtype=BOOL, device=dev)
+    sc_vote = torch.empty((rounds, g, p), dtype=I8, device=dev) if has_votes else None
+    sc_contacted = torch.empty((rounds, g), dtype=BOOL, device=dev) if track_contact else None
+    buf = _flag_buffer(g, dev)
+    cfl = _cflags(buf)
+    _run("quorum_multistep", dev, lambda lib, stream: lib.qs_multistep(
+        ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
+        _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
+        _ptr(vote_valid), n_votes, rounds, _ptr(sc_max), _ptr(sc_touched),
+        _ptr(sc_vote), _ptr(sc_contacted), ctypes.byref(cfl),
+        _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
+    ), _also(has_hier))
+    return _outputs(st, buf)
+
+
+def quorum_multistep_dense(
+    st: QuorumState,
+    ack_max, ack_touched, vote_new,
+    do_tick: bool = True,
+    track_contact: bool = True,
+    has_votes: bool = True,
+    has_hier: bool = False,
+) -> StepOutputs:
+    """R dense rounds of (R, G, P) planes in ONE launch, in place (on CUDA
+    ``csrc/quorum_multistep.cu``).  ``has_votes=False`` leaves
+    ``vote_new`` unread (it may be a dummy of any shape)."""
+    dev = _device_of(st, ack_max, ack_touched, vote_new if has_votes else None)
+    if dev.type == "cpu":
+        return _write_back(st, quorum_multistep_dense_impl(
+            st, ack_max, ack_touched, vote_new, do_tick=do_tick,
+            track_contact=track_contact, has_votes=has_votes, has_hier=has_hier,
+        ))
+    return _multistep_dense_launch(st, dev, ack_max, ack_touched, vote_new,
+                                   do_tick, track_contact, has_votes, has_hier)
+
+
+def _multistep_dense_launch(st, dev, ack_max, ack_touched, vote_new, do_tick,
+                            track_contact, has_votes, has_hier=False):
+    cst = _cstate(st)
+    g, p = st.match.shape
+    rounds = ack_max.shape[0]
+    _check(ack_max, "ack_max", (rounds, g, p), I32)
+    _check(ack_touched, "ack_touched", (rounds, g, p), BOOL)
+    if has_votes:
+        _check(vote_new, "vote_new", (rounds, g, p), I8)
+    else:
+        vote_new = None
+    buf = _flag_buffer(g, dev)
+    cfl = _cflags(buf)
+    _run("quorum_multistep_dense", dev, lambda lib, stream: lib.qs_multistep_dense(
+        ctypes.byref(cst), _ptr(ack_max), _ptr(ack_touched), _ptr(vote_new),
+        rounds, ctypes.byref(cfl),
+        _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
+    ), _also(has_hier))
+    return _outputs(st, buf)
+
+
+def staged_multistep(st: QuorumState, base_index: int, rounds: int) -> StepOutputs:
+    """The headline ladder's dispatch (reference ``bench.py``
+    ``_staged_multistep_fn``): ``rounds`` dense rounds whose acks are made
+    on the device, in place (on CUDA ``csrc/quorum_multistep.cu``, whose
+    ingest reads no input: ``base_index`` and ``rounds`` are launch
+    arguments).  The flags returned are zeros."""
+    dev = _device_of(st)
+    base = _int32(base_index)
+    if rounds < 0:
+        raise ValueError(f"rounds {rounds} < 0")
+    if dev.type == "cpu":
+        return _write_back(st, staged_multistep_impl(st, base, rounds))
+    return _staged_launch(st, dev, base, rounds)
+
+
+def _staged_launch(st, dev, base_index: int, rounds: int):
+    cst = _cstate(st)
+    buf = _flag_buffer(st.match.shape[0], dev)
+    cfl = _cflags(buf)
+    _run("staged_multistep", dev, lambda lib, stream: lib.qs_staged_multistep(
+        ctypes.byref(cst), base_index, rounds, ctypes.byref(cfl),
+        _bits(True, False, False), stream,
+    ))
+    return _outputs(st, buf)

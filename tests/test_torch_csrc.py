@@ -580,3 +580,141 @@ def test_emulated_kv_caps_are_enforced(launch):
               torch.zeros((4, e), dtype=torch.int32), torch.full((4, r), -1, dtype=torch.int32))
         with pytest.raises(ValueError, match=what):
             tk._dense_launch(_state(f), CPU, z, z.bool(), None, False, True, False, kv=kv)
+
+
+# ----------------------------------------------------------------------
+# csrc/quorum_multistep.cu: the R-round scans (B13) and the staged ladder
+# dispatch (B8)
+# ----------------------------------------------------------------------
+
+FLAGS_MULTISTEP = list(itertools.product([False, True], repeat=4))  # tick, track, votes, hier
+
+
+def _multistep_fields(seed, p):
+    """A state from :func:`_fields` with the hier geometry and a few match
+    cells at INDEX_MIN and below zero (the sparse and dense ingests differ
+    on untouched negative cells)."""
+    rng = np.random.default_rng(seed + 1)
+    f = _hier_telem(_fields(seed, G, p), rng)
+    f["match"][::7, 0] = ts.INDEX_MIN
+    f["match"][3::11, p - 1] = -4
+    return f
+
+
+def _multistep_events(seed, r, p, cap=40, vcap=24):
+    """R rounds of padded sparse events: duplicates, stale and negative
+    values, a valid ack whose row is out of range, one whose slot is out
+    of range (its row still counts as contacted), invalid padding; vote
+    events on distinct cells a round."""
+    rng = np.random.default_rng(seed + 2)
+    ag = rng.integers(0, G, (r, cap)).astype(np.int32)
+    ap = rng.integers(0, p, (r, cap)).astype(np.int32)
+    av = rng.integers(-6, 25, (r, cap)).astype(np.int32)
+    valid = rng.random((r, cap)) < 0.9
+    valid[:, 3:6] = True
+    ag[:, 3], ap[:, 5] = G + 2, p
+    ag[:, 4], ap[:, 4], av[:, 4] = 7, 0, -3  # a negative ack onto row 7's INDEX_MIN cell
+    vg = np.zeros((r, vcap), np.int32)
+    vp = np.zeros((r, vcap), np.int32)
+    for k in range(r):
+        cells = rng.choice(G * p, size=min(vcap, G * p), replace=False)
+        vg[k, :cells.size], vp[k, :cells.size] = cells // p, cells % p
+    vv = rng.integers(0, 2, (r, vcap)).astype(np.int8)
+    vvalid = rng.random((r, vcap)) < 0.8
+    return (tuple(torch.from_numpy(a) for a in (ag, ap, av, valid)),
+            tuple(torch.from_numpy(a) for a in (vg, vp, vv, vvalid)))
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_multistep_dense_kernel_matches_plain(launch, p):
+    """The dense row loop over R = 4 rounds of (R, G, P) planes — negative
+    acks where touched, garbage where untouched — against the plain scan,
+    for every flag combination."""
+    r = 4
+    for i, (tick, track, votes, hier) in enumerate(FLAGS_MULTISTEP):
+        seed = 1100 * p + i
+        f = _multistep_fields(seed, p)
+        rng = np.random.default_rng(seed + 3)
+        touched = torch.from_numpy(rng.random((r, G, p)) < 0.35)
+        ack = torch.from_numpy(rng.integers(-6, 25, (r, G, p)).astype(np.int32))
+        vote_new = torch.from_numpy(rng.choice([-1, -1, 0, 1], (r, G, p)).astype(np.int8))
+        kout = tk._multistep_dense_launch(_state(f), CPU, ack, touched, vote_new,
+                                          tick, track, votes, hier)
+        pout = tk.quorum_multistep_dense_impl(
+            _state(f), ack, touched, vote_new, do_tick=tick, track_contact=track,
+            has_votes=votes, has_hier=hier,
+        )
+        _assert_same(kout, pout, (p, tick, track, votes, hier))
+    counts = tk.launch_counts()
+    assert counts["quorum_multistep_dense"] == 16 and counts["finish_hier"] == 8
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_multistep_sparse_kernel_matches_plain(launch, p):
+    """The scatter pre-pass and the row loop over R = 4 rounds of padded
+    events with the sparse step's traps, against the plain scan of the
+    sparse step, for every flag combination."""
+    r = 4
+    for i, (tick, track, votes, hier) in enumerate(FLAGS_MULTISTEP):
+        seed = 1200 * p + i
+        f = _multistep_fields(seed, p)
+        acks, vts = _multistep_events(seed, r, p)
+        kout = tk._multistep_launch(_state(f), CPU, acks, vts, tick, track, votes, hier)
+        pout = tk.quorum_multistep_impl(
+            _state(f), *acks, *vts, do_tick=tick, track_contact=track,
+            has_votes=votes, has_hier=hier,
+        )
+        _assert_same(kout, pout, (p, tick, track, votes, hier))
+    counts = tk.launch_counts()
+    assert counts["quorum_multistep"] == 16 and counts["finish_hier"] == 8
+
+
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_staged_multistep_matches_plain(launch, p):
+    """The synthesised ingest (slots 0 and 1 ack base + 1 + r) over R in
+    {1, 5, 9} rounds from a random state, one base wrapping past the
+    int32 maximum, against the plain version; the flags are zeros."""
+    for i, (rounds, base) in enumerate(((1, 3), (5, 17), (9, 2**31 - 4))):
+        f = _multistep_fields(1300 * p + i, p)
+        kout = tk._staged_launch(_state(f), CPU, base, rounds)
+        pout = tk.staged_multistep_impl(_state(f), base, rounds)
+        _assert_same(kout, pout, (p, rounds, base))
+        assert not any(t.any() for t in (kout.won, kout.lost) + tuple(kout.flags))
+    assert tk.launch_counts()["staged_multistep"] == 3
+
+
+def test_emulated_multistep_shape_checks(launch):
+    """Without has_votes both scans take vote dummies of any shape and
+    match the has_votes result on empty votes; a plane or event batch of
+    the wrong shape is refused before any launch."""
+    r, p = 3, 3
+    f = _multistep_fields(1400, p)
+    acks, _ = _multistep_events(1400, r, p)
+    empty = (torch.zeros((r, 8), dtype=torch.int32),) * 2 + (
+        torch.zeros((r, 8), dtype=torch.int8), torch.zeros((r, 8), dtype=torch.bool))
+    dummy = (torch.zeros((1,), dtype=torch.int32),) * 2 + (
+        torch.zeros((1,), dtype=torch.int8), torch.zeros((1,), dtype=torch.bool))
+    with_votes = tk._multistep_launch(_state(f), CPU, acks, empty, True, True, True)
+    without = tk._multistep_launch(_state(f), CPU, acks, dummy, True, True, False)
+    _assert_same(without, with_votes, "sparse dummies")
+    touched = torch.zeros((r, G, p), dtype=torch.bool)
+    ack = torch.zeros((r, G, p), dtype=torch.int32)
+    with_votes = tk._multistep_dense_launch(
+        _state(f), CPU, ack, touched, torch.full((r, G, p), -1, dtype=torch.int8),
+        True, True, True)
+    without = tk._multistep_dense_launch(
+        _state(f), CPU, ack, touched, torch.zeros((1, 1), dtype=torch.int8),
+        True, True, False)
+    _assert_same(without, with_votes, "dense dummies")
+    launched = dict(tk.launch_counts())
+    with pytest.raises(ValueError, match="ack_p"):
+        tk._multistep_launch(_state(f), CPU, (acks[0], acks[1][:, :-1].contiguous(),
+                                              acks[2], acks[3]), dummy, True, True, False)
+    with pytest.raises(ValueError, match="vote_g"):
+        tk._multistep_launch(_state(f), CPU, acks, dummy, True, True, True)
+    with pytest.raises(ValueError, match="ack_touched"):
+        tk._multistep_dense_launch(_state(f), CPU, ack, touched[:2], None, True, True, False)
+    with pytest.raises(ValueError, match="vote_new"):
+        tk._multistep_dense_launch(_state(f), CPU, ack, touched,
+                                   torch.zeros((1, 1), dtype=torch.int8), True, True, True)
+    assert tk.launch_counts() == launched

@@ -449,4 +449,5 @@ def test_wrappers_count_no_launch_on_the_cpu():
     assert tk.launch_counts() == {
         "quorum_step": 0, "quorum_step_dense": 0, "quorum_multiround": 0,
         "telem_fold": 0, "finish_hier": 0, "read_plane": 0, "kv_plane": 0,
+        "quorum_multistep": 0, "quorum_multistep_dense": 0, "staged_multistep": 0,
     }
