@@ -5,7 +5,9 @@ NVIDIA GPU.
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --only rung4,rung4_devsm
                                      # the build and the named main paths
-                                     # alone (no kernels or result line)
+                                     # alone (no result line); the name
+                                     # ``kernels`` runs phase 2 (every
+                                     # comparison and timing) alone
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -91,7 +93,11 @@ and the R-round scans (``csrc/quorum_multistep.cu``) at 65,536 x 5, R =
 track_contact x has_votes x has_hier, and at 4,096 groups for every peer
 width, and the staged ladder dispatch at 131,072 x 3 from a
 ``ladder.build_state`` state for R in {1, 7, 256} and at 4,096 groups
-for every width.  Each of phases 3 to 12 drives a main path: the launch counters are
+for every width; and K3 and the staged dispatch at block edges
+(``EDGE_SHAPES``: a partial last block, byte planes ending mid-word or
+starting one byte off a word, P in {4, 8}).  Operation bounds use the
+card's INT32 issue rate, read from ``nvidia-smi`` (``int32_peak``).
+Each of phases 3 to 12 drives a main path: the launch counters are
 zeroed just before it and read just after, and every kernel that path
 runs must have launched.  JSON lines report what was measured; the line
 before the last is the card's name and power limit, the last line the
@@ -110,10 +116,14 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# non-tensor float32 rate, the table's nearest entry for these integer ops
+# H100 SXM published peak HBM3 bandwidth (NVIDIA data sheet).  The
+# kernels' operations (compares, min/max, selects, logic, adds) issue on
+# the SMs' INT32 lanes, 64 a clock on each SM (Hopper architecture white
+# paper), so their peak is SMs x 64 x the SM clock: ``int32_peak`` sets
+# PEAK_OPS_PER_S from the card before any bound is computed.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
+PEAK_OPS_PER_S = None
 
 TPU_KERNELS = {  # the JAX function each CUDA kernel replaces
     "quorum_step_dense": ("dragonboat_tpu_torch/csrc/quorum_step_dense.cu",
@@ -160,6 +170,23 @@ def check(cond, msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def int32_peak(torch) -> dict:
+    """The card's INT32 issue rate: SMs x 64 lanes x the SM clock that
+    ``nvidia-smi`` reports as its maximum."""
+    global PEAK_OPS_PER_S
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    PEAK_OPS_PER_S = sms * INT32_LANES_PER_SM * mhz * 1e6
+    return {"phase": "peak", "int32_ops_per_s": PEAK_OPS_PER_S, "sms": sms,
+            "int32_lanes_per_sm": INT32_LANES_PER_SM, "sm_clock_max_mhz": mhz,
+            "bytes_per_s": PEAK_BYTES_PER_S}
 
 
 def nvidia_smi_line() -> str:
@@ -443,6 +470,21 @@ def kernel_ops(g, p, k=1, s=0):
     the read plane ~2P + 12 per slot and round (``s`` slots, 0 = off)."""
     ce = {1: 0, 2: 1, 3: 3, 4: 5, 5: 9, 6: 12, 7: 16, 8: 19}.get(p, p * p)
     return g * k * (6 * p + 3 * ce + 4 * p + 40 + s * (2 * p + 12))
+
+
+def staged_ops(g, p, r):
+    """Integer operations of the staged dispatch's R rounds (bench.py
+    ``_staged_multistep_fn``) per launch: per row and round the ingest (a
+    max with the round's ack or 0, an add and a max into next: 3P), the
+    activity bits (1), the self column (P selects, a max), the commit
+    rule (P mask selects, 2 per compare-exchange, P - 1 picks of the
+    k-th column, two compares, an and and a select: 2P + 2CE + 3) and the
+    tick (the clock add, two compares and two ands, an or and a select,
+    the check-quorum and and and-not, the heartbeat add, compare and
+    select: 12).  The vote tally is left out: the dispatch discards the
+    won/lost flags it feeds."""
+    ce = {1: 0, 2: 1, 3: 3, 4: 5, 5: 9, 6: 12, 7: 16, 8: 19}.get(p, p * p)
+    return g * r * (3 * p + 1 + (p + 1) + (2 * p + 2 * ce + 3) + 12)
 
 
 def bound_ms(nbytes, ops):
@@ -982,14 +1024,16 @@ def _time_multistep(torch, ts, tk, dev, name, flags, fields, inputs, rounds,
 
     pout = plain()
     nbytes = multistep_bytes(name, inputs, flags, st_p, pout.state)
-    b_ms, b_by = bound_ms(nbytes, kernel_ops(g, p, k=rounds))
+    ops = (staged_ops(g, p, rounds) if name == "staged_multistep"
+           else kernel_ops(g, p, k=rounds))
+    b_ms, b_by = bound_ms(nbytes, ops)
     ms = device_ms(torch, kern, reset)
     reset()
     err = _equal_outputs(torch, ts, tk, kern(), pout, f"{name} timed R={rounds}")
     return {
         "ms": ms, "plain_ms": wall_ms(torch, plain, iters=5, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-        "ops": kernel_ops(g, p, k=rounds),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+        "kernel_ops": kernel_ops(g, p, k=rounds),
         "shape": {"G": g, "P": p, "R": rounds,
                   **({"events": MS_CAP} if name == "quorum_multistep" else {})},
         "flags": flags,
@@ -1059,6 +1103,76 @@ def phase_multistep_kernels(torch, ts, tk, dev, ladder_mod, record, p=5):
         if rounds == LADDER_R:
             timings["staged_multistep"] = t
     return n, timings
+
+
+# K3 and the staged row loop at block edges: several 128-row blocks and a
+# partial last one (G = 300), G x P off word alignment (257 x 3: the vote
+# and echo planes end mid-word), and P in {4, 8}, whose rows are an even
+# number of words (the widths where a row-major tile would share banks)
+EDGE_SHAPES = ((300, 5), (257, 3), (4_099, 4), (4_099, 8))
+# K3's cases there: rung 5's instance with the fold's recycle reset, the
+# HIER instance with votes and ticks, the READS instance at S = 3 with
+# votes and churn, and the devsm trace
+EDGE_K3_FLAGS = (
+    dict(do_tick=False, track_contact=False, has_votes=False, has_churn=True,
+         has_telem=True, purge_telem=True),
+    dict(do_tick=True, track_contact=True, has_votes=True, has_churn=True, has_hier=True),
+    dict(do_tick=True, track_contact=True, has_votes=True, has_churn=True, has_reads=True),
+    dict(do_tick=False, track_contact=True, has_votes=False, has_churn=True, has_kv=True),
+)
+
+
+def _misaligned(torch, t):
+    """``t`` copied into a contiguous view that starts one byte past a word
+    boundary of its buffer."""
+    buf = torch.zeros((t.numel() * t.element_size() + 1,), dtype=torch.uint8, device=t.device)
+    out = buf[1:].view(t.dtype).view(t.shape) if t.element_size() == 1 else None
+    check(out is not None, "only byte planes are misaligned")
+    out.copy_(t)
+    return out
+
+
+def phase_edge_kernels(torch, ts, tk, dev, record):
+    """K3 over EDGE_K3_FLAGS and the staged loop from random states (R = 9
+    with a base wrapping past the int32 maximum, R = 256) at EDGE_SHAPES,
+    K3 once more with its vote and echo planes starting mid-word; each
+    against its plain version."""
+    name, n = "quorum_multiround", 0
+    for g, p in EDGE_SHAPES:
+        for i, flags in enumerate(EDGE_K3_FLAGS):
+            seed = 95_000 + 10 * g + i
+            s = 3 if flags.get("has_reads") else None
+            if flags.get("has_kv"):
+                err = _kv_case(torch, ts, tk, dev, name, seed, g, p, flags, KV_DIMS, 4, 64)
+            else:
+                fields = random_fields(ts, seed, g, p, s)
+                inputs = _inputs(name, seed, g, p, k=4, c=64, s=s)
+                for mis in (False, True):
+                    st_k = ts.state_from_numpy(fields, dev)
+                    st_p = ts.state_from_numpy(fields, dev)
+                    args = _device_args(torch, inputs, dev)
+                    if mis:  # the vote plane and the echo plane
+                        args[1] = _misaligned(torch, args[1])
+                        if s:
+                            args[9] = _misaligned(torch, args[9])
+                    kout = tk.quorum_multiround(st_k, *args, **flags)
+                    pout = tk.quorum_multiround_impl(st_p, *args, **flags)
+                    torch.cuda.synchronize()
+                    err = _equal_outputs(torch, ts, tk, kout, pout,
+                                         f"{name} G={g} P={p} misaligned={mis} {flags}")
+                    record(name, flags, err)
+                    n += 1
+                continue
+            record(name, flags, err)
+            n += 1
+        for rounds, base in ((9, 2**31 - 4), (LADDER_R, 1)):
+            fields = random_fields(ts, 96_000 + g + p, g, p)
+            kout, pout = _staged_pair(torch, ts, tk, fields, dev, base, rounds)
+            record("staged_multistep", {}, _equal_outputs(
+                torch, ts, tk, kout, pout, f"staged_multistep G={g} P={p} R={rounds}"))
+            n += 1
+    emit({"phase": "edges_vs_plain", "compared": n, "shapes": EDGE_SHAPES})
+    return n
 
 
 def phase_kernels(torch, ts, tk, dev, ladder_mod, g=100_000, p=5):
@@ -1153,6 +1267,7 @@ def phase_kernels(torch, ts, tk, dev, ladder_mod, g=100_000, p=5):
         record("telem_fold", {}, _compare_telem(
             torch, ts, tk, fields, dev, k, reads, kv,
             f"telem_fold G={tg} k={k} reads={reads} kv={kv}"))
+    phase_edge_kernels(torch, ts, tk, dev, record)
     emit({"phase": "kernels_vs_plain", "compared": compared, "max_abs_err": max_err})
 
     timings = {}
@@ -2639,7 +2754,7 @@ def main(argv) -> int:
     only = None
     if argv:
         if len(argv) != 2 or argv[0] != "--only":
-            print("usage: chip_smoke.py [--only PATH[,PATH...]]", file=sys.stderr)
+            print("usage: chip_smoke.py [--only NAME[,NAME...]]", file=sys.stderr)
             return 2
         only = set(argv[1].split(","))
 
@@ -2669,12 +2784,14 @@ def main(argv) -> int:
               "compiled": info.get("compiled"),
               "source_seconds": info.get("source_seconds"),
               "registers_max": _registers(log), "frames": _frames(log)})
-        if only is None:
+        emit(int32_peak(torch))
+        ran = set()
+        if only is None or "kernels" in only:
             t0 = time.perf_counter()
             timings = phase_kernels(torch, ts, tk, dev, ladder_mod)
             emit({"phase": "kernels_seconds", "seconds": time.perf_counter() - t0})
+            ran.add("kernels")
         launches = dict.fromkeys(TPU_KERNELS, 0)
-        ran = set()
 
         def main_path(label, run, kernels):
             """One main path's run, its launch counts zeroed just before

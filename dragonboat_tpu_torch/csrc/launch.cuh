@@ -7,7 +7,7 @@
 // plane doubles the instances of both kernels; in sources of their own
 // they compile in nvcc processes of their own, all started together
 // (ops/_build.py), so the build's wall time is that of its slowest
-// source.  That alone left K3's READS source over the build's time
+// source (K3's READS instances take two, split by HIER).  That alone left K3's READS source over the build's time
 // budget, so track_contact is a launch argument of K1 and K3 (see
 // ingest_dense), which halves both kernels' instances.
 #pragma once
@@ -39,37 +39,49 @@ int launch_dense(const State& st, const int32_t* ack_max, const bool* touched,
   return (int)cudaGetLastError();
 }
 
-// K3's main launch, after the churn-map pre-pass.
-template <bool READS>
-int launch_multiround(const State& st, const int32_t* ack,
-                      const int8_t* vote_new, const int32_t* churn_map,
-                      const int32_t* churn_term, const int32_t* churn_start,
-                      const int32_t* churn_last, int n_records,
-                      const bool* tick_mask, int n_rounds,
-                      int32_t* commit_trace, const Reads& rd, const Flags& fl,
-                      int flags, cudaStream_t cs) {
+// K3's main launch, after the churn-map pre-pass, for one value of the
+// HIER flag: the READS instances compile in two sources, one a value,
+// since in one they took the build past its time budget.
+template <bool READS, bool HIER>
+int launch_multiround_h(const State& st, const int32_t* ack,
+                        const int8_t* vote_new, const int32_t* churn_map,
+                        const int32_t* churn_term, const int32_t* churn_start,
+                        const int32_t* churn_last, int n_records,
+                        const bool* tick_mask, int n_rounds,
+                        int32_t* commit_trace, const Reads& rd,
+                        const Flags& fl, int flags, cudaStream_t cs) {
   const bool track = flags & F_TRACK_CONTACT;
   const bool reset_telem = flags & F_RESET_TELEM;
   const bool reset_reads = flags & F_RESET_READS;
+  // the ring of round inputs in shared memory (see multiround_kernel):
+  // K3_BLOCK rows a block, or half that where the widest rows (generic
+  // widths with many read slots) would not fit in an SM's 227 KB
+  const K3Layout lay = k3_layout(st.P, READS ? rd.S : 0, flags & F_HAS_VOTES,
+                                 flags & F_HAS_CHURN, READS);
+  int block = K3_BLOCK;
+  if (k3_smem_bytes(lay, block) > 232448) block /= 2;
+  const size_t smem = k3_smem_bytes(lay, block);
+  const int grid = (int)(((long long)st.G + block - 1) / block);
+  int err = 0;
   with_p(st.P, [&](auto pc) {
     with_bool(flags & F_DO_TICK, [&](auto tick) {
       with_bool(flags & F_HAS_VOTES, [&](auto votes) {
         with_bool(flags & F_HAS_CHURN, [&](auto cc) {
-          with_bool(flags & F_HAS_HIER, [&](auto hier) {
-            auto kern =
-                multiround_kernel<decltype(pc)::value, decltype(tick)::value,
-                                  decltype(votes)::value, decltype(cc)::value,
-                                  decltype(hier)::value, READS>;
-            QS_LAUNCH(kern, grid_for(st.G), BLOCK, cs, st, ack, vote_new,
-                      churn_map, churn_term, churn_start, churn_last,
-                      n_records, tick_mask, n_rounds, commit_trace, track,
-                      reset_telem, reset_reads, rd, fl);
-          });
+          auto kern =
+              multiround_kernel<decltype(pc)::value, decltype(tick)::value,
+                                decltype(votes)::value, decltype(cc)::value,
+                                HIER, READS>;
+          err = (int)qs_set_smem(kern, smem);
+          if (err != 0) return;
+          QS_LAUNCH_DYN(kern, grid, block, smem, cs, st, ack, vote_new,
+                        churn_map, churn_term, churn_start, churn_last,
+                        n_records, tick_mask, n_rounds, commit_trace, track,
+                        reset_telem, reset_reads, rd, fl);
         });
       });
     });
   });
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // The READS = true dispatches, each compiled in its own source.
@@ -85,6 +97,15 @@ int launch_multiround_reads(const State& st, const int32_t* ack,
                             const bool* tick_mask, int n_rounds,
                             int32_t* commit_trace, const Reads& rd,
                             const Flags& fl, int flags, cudaStream_t cs);
+int launch_multiround_reads_hier(const State& st, const int32_t* ack,
+                                 const int8_t* vote_new,
+                                 const int32_t* churn_map,
+                                 const int32_t* churn_term,
+                                 const int32_t* churn_start,
+                                 const int32_t* churn_last, int n_records,
+                                 const bool* tick_mask, int n_rounds,
+                                 int32_t* commit_trace, const Reads& rd,
+                                 const Flags& fl, int flags, cudaStream_t cs);
 
 // The read block of a launch that passed none (the plane off, no reset).
 inline Reads no_reads() { return Reads{}; }

@@ -7,8 +7,9 @@
 // template flag of K1 and K3), quorum_step_impl (:520),
 // quorum_step_dense_impl (:686), _apply_recycle (:931),
 // quorum_multiround_impl (:1021), and the R-round scans
-// quorum_multistep_impl (:802), quorum_multistep_dense_impl (:872) and
-// bench.py's _staged_multistep_fn (:131) as multistep_kernel.
+// quorum_multistep_impl (:802) and quorum_multistep_dense_impl (:872) as
+// multistep_kernel, and bench.py's _staged_multistep_fn (:131) as
+// staged_kernel.
 //
 // Design.  Every update of the quorum engine is row-wise over groups: no
 // group reads another group's row.  So every kernel here runs one thread
@@ -17,7 +18,8 @@
 // 8 < P <= QS_MAX_GENERIC_P, whose columns live in local memory).  A
 // launch reads each state field of the row once and writes back, whole,
 // each field it may change (store_row); the K-round kernel keeps the row
-// in registers across all K rounds.
+// in registers across all K rounds and brings each round's inputs into
+// shared memory rounds ahead (see multiround_kernel).
 //
 // Bound on the H100.  The work is a handful of integer compares per byte,
 // so the kernels are bound by memory traffic (3.35 TB/s), not by
@@ -40,7 +42,8 @@
 // then run as loops over blocks and threads, which lets the arithmetic be
 // exercised without a GPU.  QS_LAUNCH runs the threads one after another,
 // so it checks the arithmetic and the binding but none of the concurrency
-// of the card (the event launch's atomicMax races).  QS_LAUNCH_COOP, for
+// of the card (the event launch's atomicMax races; the asynchronous copies
+// of K3's ring complete at once).  QS_LAUNCH_COOP, for
 // kernels whose threads share memory and meet at __syncthreads (the
 // telemetry fold), runs each block's threads as real host threads with a
 // barrier, blocks one after another.  chip_smoke.py, which holds the CUDA
@@ -54,6 +57,7 @@
 #ifdef QS_EMULATE
 #include <condition_variable>
 #include <cstring>
+#include <cstdint>
 #include <mutex>
 #include <thread>
 #include <type_traits>
@@ -64,8 +68,10 @@ struct qs_dim3 {
 inline thread_local qs_dim3 threadIdx, blockIdx, blockDim;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
+#define __launch_bounds__(...)
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
@@ -137,6 +143,23 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
         kern(__VA_ARGS__);                                             \
       }                                                                \
   } while (0)
+// Dynamic shared memory: one host buffer the launch sizes.  The kernels
+// that use it (K3's ring) give each thread its own column of it, so the
+// threads may run one after another.
+inline std::vector<uint32_t> qs_dyn_smem;
+#define QS_DYN_SMEM(name) uint32_t* name = qs_dyn_smem.data()
+#define QS_LAUNCH_DYN(kern, grid, block, smem, stream, ...)            \
+  do {                                                                 \
+    qs_dyn_smem.assign(((size_t)(smem) + 3) / 4, 0xdeadbeefu);         \
+    QS_LAUNCH(kern, grid, block, stream, __VA_ARGS__);                 \
+  } while (0)
+// The asynchronous copy to shared memory completes at once.
+inline void qs_cp_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
+inline void qs_cp_commit() {}
+template <int N>
+inline void qs_cp_wait() {}
+template <typename K>
+inline cudaError_t qs_set_smem(K, size_t) { return 0; }
 #define QS_UNROLL
 #else
 #include <cuda_runtime.h>
@@ -144,10 +167,39 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 #define QS_LAUNCH(kern, grid, block, stream, ...) \
   kern<<<(grid), (block), 0, (stream)>>>(__VA_ARGS__)
 #define QS_LAUNCH_COOP QS_LAUNCH
+#define QS_DYN_SMEM(name) extern __shared__ __align__(16) uint32_t name[]
+#define QS_LAUNCH_DYN(kern, grid, block, smem, stream, ...) \
+  kern<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+// Hopper's per-thread asynchronous copy of one 4-byte word from global to
+// shared memory (cp.async, through L1), its commit groups and the wait
+// for all but the newest N groups; the thread's own later reads see the
+// words once the wait returns.
+__device__ __forceinline__ void qs_cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void qs_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void qs_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// A launch above 48 KB of dynamic shared memory must first raise the
+// kernel's limit.
+template <typename K>
+inline cudaError_t qs_set_smem(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
 #define QS_UNROLL _Pragma("unroll")
 #endif
 
 #define QS_HD __device__ __forceinline__
+// for what the host launchers compute too (K3's ring layout)
+#define QS_HHD __host__ __device__ __forceinline__
 
 namespace qs {
 
@@ -243,16 +295,19 @@ QS_HD int32_t wsub(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
+// The per-slot flags of a row are bit masks (bit i = slot i, P <= 32) and
+// its votes four int8 lanes a word: as arrays of bools and bytes, indexed
+// through pointers, they kept every row of every kernel in local memory
+// (a stack frame of the whole row, stored to and reloaded every round).
 template <int P>
 struct Row {
   static constexpr int N = P > 0 ? P : QS_MAX_GENERIC_P;
   int np;  // peer slots in this launch (P, or the runtime width when P == 0)
   int32_t match[N];
   int32_t next[N];
-  bool voting[N];
-  bool active[N];
-  int8_t votes[N];
-  bool near[N];        // loaded only by HIER instances (load_hier)
+  uint32_t voting, active;
+  uint32_t votes[(N + 3) / 4];
+  uint32_t near;       // loaded only by HIER instances (load_hier)
   int32_t sub_quorum;  // likewise
   int8_t node_state;
   bool live;
@@ -265,18 +320,41 @@ QS_HD int width(const Row<P>& r) {
   return P > 0 ? P : r.np;
 }
 
+QS_HD bool bit(uint32_t m, int i) { return (m >> i) & 1u; }
+
+// All ones where ``c`` holds, else 0.  The row functions pick a column by
+// a run-time slot (the self slot, the quorum's column) as an OR of masked
+// columns: written as ``if (i == slot) out = a[i]`` the compiler turns the
+// pick into a[slot], an indexed load that moves the whole row to local
+// memory.
+QS_HD int32_t ones_if(bool c) { return -(int32_t)c; }
+
+template <int P>
+QS_HD int8_t vote(const Row<P>& r, int i) {
+  return (int8_t)(r.votes[i >> 2] >> (8 * (i & 3)));
+}
+
+template <int P>
+QS_HD void set_vote(Row<P>& r, int i, int8_t v) {
+  const int sh = 8 * (i & 3);
+  r.votes[i >> 2] = (r.votes[i >> 2] & ~(0xffu << sh)) | ((uint32_t)(uint8_t)v << sh);
+}
+
 template <int P>
 QS_HD void load_row(Row<P>& r, const State& s, int g) {
   r.np = P > 0 ? P : s.P;
   const int p = width(r);
   const size_t base = (size_t)g * p;
+  r.voting = r.active = 0;
+  QS_UNROLL
+  for (int i = 0; i < (p + 3) / 4; ++i) r.votes[i] = 0;
   QS_UNROLL
   for (int i = 0; i < p; ++i) {
     r.match[i] = s.match[base + i];
     r.next[i] = s.next[base + i];
-    r.voting[i] = s.voting[base + i];
-    r.active[i] = s.active[base + i];
-    r.votes[i] = s.votes[base + i];
+    r.voting |= (uint32_t)s.voting[base + i] << i;
+    r.active |= (uint32_t)s.active[base + i] << i;
+    set_vote(r, i, s.votes[base + i]);
   }
   r.node_state = s.node_state[g];
   r.live = s.live[g];
@@ -296,8 +374,9 @@ template <int P>
 QS_HD void load_hier(Row<P>& r, const State& s, int g) {
   const int p = width(r);
   const size_t base = (size_t)g * p;
+  r.near = 0;
   QS_UNROLL
-  for (int i = 0; i < p; ++i) r.near[i] = s.near[base + i];
+  for (int i = 0; i < p; ++i) r.near |= (uint32_t)s.near[base + i] << i;
   r.sub_quorum = s.sub_quorum[g];
 }
 
@@ -312,8 +391,8 @@ QS_HD void store_row(const Row<P>& r, const State& s, int g) {
   for (int i = 0; i < p; ++i) {
     s.match[base + i] = r.match[i];
     s.next[base + i] = r.next[i];
-    s.active[base + i] = r.active[i];
-    if (VOTES || CHURN) s.votes[base + i] = r.votes[i];
+    s.active[base + i] = bit(r.active, i);
+    if (VOTES || CHURN) s.votes[base + i] = vote(r, i);
   }
   if (CHURN) {
     s.node_state[g] = r.node_state;
@@ -383,28 +462,27 @@ QS_HD void sort_net<8>(int32_t* c) {
 // is out of range, as the reference's where-chain gives); for P > 8 the
 // rank form: each value's descending rank counts the values that beat
 // it, the slot index breaking ties, and the one of rank k-1 is taken (0
-// when none is).  ``mask`` is one of the row's register arrays.
+// when none is).  ``mask`` holds a bit a slot.
 template <int P>
-QS_HD int32_t kth_largest(const Row<P>& r, const bool* mask, int32_t k) {
+QS_HD int32_t kth_largest(const Row<P>& r, uint32_t mask, int32_t k) {
   const int32_t ksel = wadd(k, -1);
   if constexpr (P > 0) {
     int32_t c[P];
     QS_UNROLL
-    for (int i = 0; i < P; ++i) c[i] = mask[i] ? r.match[i] : INDEX_MIN;
+    for (int i = 0; i < P; ++i) c[i] = bit(mask, i) ? r.match[i] : INDEX_MIN;
     sort_net<P>(c);
-    int32_t out = c[0];
+    int32_t out = c[0] & ones_if(ksel < 1 || ksel >= P);
     QS_UNROLL
-    for (int i = 1; i < P; ++i)
-      if (ksel == i) out = c[i];
+    for (int i = 1; i < P; ++i) out |= c[i] & ones_if(ksel == i);
     return out;
   } else {
     const int p = r.np;
     int32_t out = 0;
     for (int i = 0; i < p; ++i) {
-      const int32_t vi = mask[i] ? r.match[i] : INDEX_MIN;
+      const int32_t vi = bit(mask, i) ? r.match[i] : INDEX_MIN;
       int32_t rank = 0;
       for (int j = 0; j < p; ++j) {
-        const int32_t vj = mask[j] ? r.match[j] : INDEX_MIN;
+        const int32_t vj = bit(mask, j) ? r.match[j] : INDEX_MIN;
         rank += (vj > vi) || (vj == vi && j < i);
       }
       if (rank == ksel) out = wadd(out, vi);
@@ -420,8 +498,7 @@ QS_HD int32_t self_column(const Row<P>& r) {
   const int p = width(r);
   int32_t out = 0;
   QS_UNROLL
-  for (int i = 0; i < p; ++i)
-    if (i == r.self_slot) out = r.match[i];
+  for (int i = 0; i < p; ++i) out |= r.match[i] & ones_if(i == r.self_slot);
   return out;
 }
 
@@ -429,7 +506,6 @@ QS_HD int32_t self_column(const Row<P>& r) {
 template <int P>
 QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
                 bool& hb_due, bool& checkq_demote) {
-  const int p = width(r);
   const bool is_leader = r.node_state == LEADER && r.live;
   int32_t et = r.live ? wadd(r.election_tick, 1) : r.election_tick;
   elect_due = r.live && !is_leader && s.electable[g] && et >= s.rand_timeout[g];
@@ -437,10 +513,7 @@ QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
   if (elect_due || checkq_due) et = 0;
   const bool run_checkq = checkq_due && s.check_quorum_on[g];
   checkq_demote = run_checkq;
-  if (run_checkq) {
-    QS_UNROLL
-    for (int i = 0; i < p; ++i) r.active[i] = r.active[i] && !r.voting[i];
-  }
+  if (run_checkq) r.active &= ~r.voting;
   int32_t ht = is_leader ? wadd(r.heartbeat_tick, 1) : r.heartbeat_tick;
   hb_due = is_leader && ht >= s.heartbeat_timeout[g];
   if (hb_due) ht = 0;
@@ -456,28 +529,34 @@ QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
 // near value where sub_quorum == 0, so computing it only where
 // sub_quorum > 0 (k = sub_quorum) gives the same result.  The near pick
 // runs the same network and column-0 / rank rules as the classic one.
-template <int P, bool DO_TICK, bool HIER>
-QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
-                  bool& elect_due, bool& hb_due, bool& checkq_demote) {
+template <int P>
+QS_HD void tally(const Row<P>& r, bool& won, bool& lost) {
   const int p = width(r);
   int32_t granted = 0, rejected = 0;
   QS_UNROLL
   for (int i = 0; i < p; ++i) {
-    granted += r.voting[i] && r.votes[i] == VOTE_GRANT;
-    rejected += r.voting[i] && r.votes[i] == VOTE_REJECT;
+    granted += bit(r.voting, i) && vote(r, i) == VOTE_GRANT;
+    rejected += bit(r.voting, i) && vote(r, i) == VOTE_REJECT;
   }
   const bool is_cand = r.node_state == CANDIDATE && r.live;
   won = is_cand && granted >= r.quorum;
   lost = is_cand && rejected >= r.quorum;
+}
+
+template <int P, bool HIER>
+QS_HD void commit_rule(Row<P>& r) {
   int32_t q = kth_largest(r, r.voting, r.quorum);
-  if (HIER && r.sub_quorum > 0) {
-    bool near_voting[Row<P>::N];
-    QS_UNROLL
-    for (int i = 0; i < p; ++i) near_voting[i] = r.voting[i] && r.near[i];
-    q = imax(q, kth_largest(r, near_voting, r.sub_quorum));
-  }
+  if (HIER && r.sub_quorum > 0)
+    q = imax(q, kth_largest(r, r.voting & r.near, r.sub_quorum));
   const bool is_leader = r.node_state == LEADER && r.live;
   if (is_leader && q > r.committed && q >= r.term_start) r.committed = q;
+}
+
+template <int P, bool DO_TICK, bool HIER>
+QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
+                  bool& elect_due, bool& hb_due, bool& checkq_demote) {
+  tally(r, won, lost);
+  commit_rule<P, HIER>(r);
   if (DO_TICK) {
     tick(r, s, g, elect_due, hb_due, checkq_demote);
   } else {
@@ -492,9 +571,9 @@ QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
 // ``track`` (track_contact) is a launch argument, the same for every
 // thread, not a template flag: it gates one store, and as a template
 // flag it doubled K1's and K3's instances (see launch.cuh).
-template <int P, bool VOTES, bool SENTINEL>
-QS_HD void ingest_dense(Row<P>& r, const int32_t* ack, const bool* touched,
-                        const int8_t* vote_new, bool track) {
+template <int P, bool VOTES, bool SENTINEL, typename A, typename V>
+QS_HD void ingest_dense(Row<P>& r, A ack, const bool* touched, V vote_new,
+                        bool track) {
   const int p = width(r);
   bool contacted = false;
   QS_UNROLL
@@ -503,7 +582,7 @@ QS_HD void ingest_dense(Row<P>& r, const int32_t* ack, const bool* touched,
     const bool t = SENTINEL ? a >= 0 : touched[i];
     r.match[i] = imax(r.match[i], t ? a : 0);
     r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
-    r.active[i] = r.active[i] || t;
+    r.active |= (uint32_t)t << i;
     contacted = contacted || t;
   }
   if (track && contacted && r.node_state != LEADER && r.live)
@@ -513,7 +592,7 @@ QS_HD void ingest_dense(Row<P>& r, const int32_t* ack, const bool* touched,
     QS_UNROLL
     for (int i = 0; i < p; ++i) {
       const int8_t v = vote_new[i];
-      if (r.votes[i] == VOTE_NONE && v != VOTE_NONE) r.votes[i] = v;
+      if (vote(r, i) == VOTE_NONE && v != VOTE_NONE) set_vote(r, i, v);
     }
   }
 }
@@ -525,11 +604,11 @@ QS_HD void recycle(Row<P>& r, int32_t term, int32_t start, int32_t last) {
   const int p = width(r);
   QS_UNROLL
   for (int i = 0; i < p; ++i) {
-    r.match[i] = i == r.self_slot ? last : 0;
+    r.match[i] = last & ones_if(i == r.self_slot);
     r.next[i] = wadd(last, 1);
-    r.active[i] = false;
-    r.votes[i] = VOTE_NONE;
+    set_vote(r, i, VOTE_NONE);
   }
+  r.active = 0;
   r.node_state = LEADER;
   r.live = true;
   r.term = term;
@@ -636,21 +715,20 @@ QS_HD void store_done(const ReadDone& d, const Reads& rd, int g) {
 // released adds to ``done``.  The plane reads node_state, live, voting,
 // self_slot and quorum, which the tail and the tick leave alone, so it
 // may run after either.
-template <int P>
-QS_HD void read_plane(const Row<P>& r, ReadRow& rr, int S,
-                      const int32_t* stage_idx, const int32_t* stage_cnt,
-                      const bool* echo, ReadDone& done) {
+template <int P, typename I, typename E>
+QS_HD void read_plane(const Row<P>& r, ReadRow& rr, int S, I stage_idx,
+                      I stage_cnt, E echo, ReadDone& done) {
   const int p = width(r);
-  uint32_t voting = 0;
-  QS_UNROLL
-  for (int j = 0; j < p; ++j) voting |= (uint32_t)r.voting[j] << j;
+  const uint32_t voting = r.voting;
   const uint32_t self_bit =
       r.self_slot >= 0 && r.self_slot < p ? 1u << r.self_slot : 0u;
   const bool is_leader = r.node_state == LEADER && r.live;
   QS_UNROLL
   for (int i = 0; i < QS_MAX_READ_SLOTS; ++i) {
     if (i < S) {
-      const uint32_t e = pack_bits(echo + (size_t)i * p, p);
+      uint32_t e = 0;
+      QS_UNROLL
+      for (int j = 0; j < p; ++j) e |= (uint32_t)(echo[i * p + j] != 0) << j;
       const int32_t si = stage_idx[i];
       if (si >= 0) {
         rr.index[i] = si;
@@ -784,31 +862,158 @@ static __global__ void churn_map_kernel(const int32_t* churn_row, int n_rounds,
 // registers; flags OR over the rounds, the read egress sums counts and
 // takes the largest index.  Where ``commit_trace`` is given (the device
 // state machine runs after this launch, csrc/kv_plane.cu) each round's
-// post-tail watermark is stored to commit_trace[k * G + g].  A recycle keeps the hier geometry (a
-// same-geometry tenant); with reset_telem (has_telem or purge_telem) it
-// also zeroes the row's telem_prev_committed, which the fold after this
-// launch then reads.  It drops the old tenant's pending reads: in the
-// READS instances (whose reset_reads is always set) the slots in
-// registers, before that round's stage; elsewhere, with reset_reads
-// (purge_reads), the row's slots in memory once at the end, since no
-// round reads them.
+// post-tail watermark is stored to commit_trace[k * G + g].  A recycle
+// keeps the hier geometry (a same-geometry tenant); with reset_telem
+// (has_telem or purge_telem) it also zeroes the row's
+// telem_prev_committed, which the fold after this launch then reads.  It
+// drops the old tenant's pending reads: in the READS instances (whose
+// reset_reads is always set) the slots in registers, before that round's
+// stage; elsewhere, with reset_reads (purge_reads), the row's slots in
+// memory once at the end, since no round reads them.
+//
+// The inputs of a round.  Each round's inputs of a row (its P ack cells,
+// its churn-map entry, with votes its P vote bytes, with the read plane
+// its S stage indexes and counts and S x P echo bytes) reach shared
+// memory by cp.async K3_AHEAD rounds ahead of the round the thread
+// computes, into a ring of K3_SLOTS round slots; so two rounds of loads
+// are in flight while a round computes, where a thread used to wait out
+// a full memory latency every round (three and six rounds ahead were no
+// faster on the H100, and six halved the READS instance's blocks an SM).
+// Each thread copies and reads only its own row, so no barrier is needed
+// (a thread's wait_group covers its own copies) and the ring is
+// column-major (word j of a thread's slot at j x B + t): a warp's shared
+// reads hit 32 banks at every width.  A warp's copies read P strided
+// words of global memory, the pattern of the loads they replace; L1
+// serves them in ~4x the wavefronts of a coalesced copy, still far above
+// what HBM delivers.  A byte plane is copied as the aligned words that
+// cover the row's bytes (the row's offset in its first word is its
+// shift); a word that would reach outside the plane, which happens only
+// at the plane's two ends (G x P not a multiple of 4, or a tensor not
+// word-aligned), is copied byte by byte by the thread itself.  Blocks of
+// K3_BLOCK rows, with the registers capped for 6 blocks an SM (4 in the
+// READS instances): rung 5's 100,000 rows (782 blocks) and rung 4's
+// 65,536 (512) fit the 132 SMs in one wave.
+constexpr int K3_BLOCK = 128;
+constexpr int K3_AHEAD = 2;  // rounds in flight ahead of the one computed
+// the ring: those, the round computed and the one before it, so a slot
+// is rewritten two rounds after its last read
+constexpr int K3_SLOTS = K3_AHEAD + 2;
+
+// Words of a thread's ring slot: the ack cells, the churn record, the
+// words covering the vote bytes, the stage indexes and counts, the words
+// covering the echo bytes.
+struct K3Layout {
+  int ack, churn, votes, idx, cnt, echo, words;
+};
+
+QS_HHD int cover_words(int bytes) { return (bytes + 6) / 4; }
+
+QS_HHD K3Layout k3_layout(int p, int S, bool votes, bool churn, bool reads) {
+  K3Layout l;
+  l.ack = 0;
+  l.churn = p;
+  l.votes = l.churn + (churn ? 1 : 0);
+  l.idx = l.votes + (votes ? cover_words(p) : 0);
+  l.cnt = l.idx + (reads ? S : 0);
+  l.echo = l.cnt + (reads ? S : 0);
+  l.words = l.echo + (reads ? cover_words(S * p) : 0);
+  return l;
+}
+
+inline size_t k3_smem_bytes(const K3Layout& l, int block) {
+  return (size_t)K3_SLOTS * l.words * block * 4;
+}
+
+// ``n`` int32 words from ``src`` to the column ``dst`` (stride B).
+QS_HD void ring_copy_words(uint32_t* dst, int B, const int32_t* src, int n) {
+  for (int j = 0; j < n; ++j) qs_cp_async4(dst + (size_t)j * B, src + j);
+}
+
+// The ``n`` bytes at ``src`` of the plane [lo, hi) as the aligned words
+// that cover them; a word reaching outside the plane byte by byte.
+QS_HD void ring_copy_bytes(uint32_t* dst, int B, const void* src, int n,
+                           const void* lo, const void* hi) {
+  const uintptr_t a = (uintptr_t)src, l = (uintptr_t)lo, h = (uintptr_t)hi;
+  const uintptr_t w0 = a & ~(uintptr_t)3;
+  const int nw = (int)((a - w0) + n + 3) / 4;
+  for (int j = 0; j < nw; ++j) {
+    const uintptr_t w = w0 + 4 * (uintptr_t)j;
+    uint32_t* d = dst + (size_t)j * B;
+    if (w >= l && w + 4 <= h) {
+      qs_cp_async4(d, (const void*)w);
+    } else {
+      for (int b = 0; b < 4; ++b)
+        if (w + b >= l && w + b < h)
+          ((uint8_t*)d)[b] = *(const uint8_t*)(w + b);
+    }
+  }
+}
+
+// A thread's view of a region of its ring slot: words, and bytes at the
+// shift their first global address had.
+struct RingWords {
+  const uint32_t* col;
+  int B;
+  QS_HD int32_t operator[](int i) const { return (int32_t)col[(size_t)i * B]; }
+};
+
+struct RingBytes {
+  const uint32_t* col;
+  int B, shift;
+  QS_HD int8_t operator[](int q) const {
+    const int x = q + shift;
+    return (int8_t)(col[(size_t)(x >> 2) * B] >> (8 * (x & 3)));
+  }
+};
+
 template <int P, bool DO_TICK, bool VOTES, bool CHURN, bool HIER, bool READS>
-__global__ void multiround_kernel(State s, const int32_t* ack,
-                                  const int8_t* vote_new,
-                                  const int32_t* churn_map,
-                                  const int32_t* churn_term,
-                                  const int32_t* churn_start,
-                                  const int32_t* churn_last, int n_records,
-                                  const bool* tick_mask, int n_rounds,
-                                  int32_t* commit_trace, bool track,
-                                  bool reset_telem, bool reset_reads, Reads rd,
-                                  Flags f) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(K3_BLOCK, READS ? 4 : 6)
+    multiround_kernel(State s, const int32_t* ack, const int8_t* vote_new,
+                      const int32_t* churn_map, const int32_t* churn_term,
+                      const int32_t* churn_start, const int32_t* churn_last,
+                      int n_records, const bool* tick_mask, int n_rounds,
+                      int32_t* commit_trace, bool track, bool reset_telem,
+                      bool reset_reads, Reads rd, Flags f) {
+  QS_DYN_SMEM(ring);
+  const int B = blockDim.x;
+  const int g = blockIdx.x * B + threadIdx.x;
   if (g >= s.G) return;
+  const int p = P > 0 ? P : s.P;
+  const int S = READS ? rd.S : 0;
+  const K3Layout lay = k3_layout(p, S, VOTES, CHURN, READS);
+  const size_t slot_words = (size_t)lay.words * B;
+  uint32_t* const col = ring + threadIdx.x;
+  uint32_t* const ring_end = col + K3_SLOTS * slot_words;
+  const size_t cells = (size_t)n_rounds * s.G * p;
+  // the next round to copy: its index, its row-round (k * G + g) and slot
+  int k_in = 0;
+  size_t rg_in = g;
+  uint32_t* slot_in = col;
+  auto issue = [&]() {
+    uint32_t* d = slot_in;
+    ring_copy_words(d + (size_t)lay.ack * B, B, ack + rg_in * p, p);
+    if (CHURN) ring_copy_words(d + (size_t)lay.churn * B, B, churn_map + rg_in, 1);
+    if (VOTES)
+      ring_copy_bytes(d + (size_t)lay.votes * B, B, vote_new + rg_in * p, p,
+                      vote_new, vote_new + cells);
+    if (READS) {
+      ring_copy_words(d + (size_t)lay.idx * B, B, rd.stage_idx + rg_in * S, S);
+      ring_copy_words(d + (size_t)lay.cnt * B, B, rd.stage_cnt + rg_in * S, S);
+      ring_copy_bytes(d + (size_t)lay.echo * B, B, rd.echo + rg_in * S * p,
+                      S * p, rd.echo, rd.echo + cells * S);
+    }
+    ++k_in;
+    rg_in += s.G;
+    slot_in += slot_words;
+    if (slot_in == ring_end) slot_in = col;
+  };
+  for (int k = 0; k < K3_AHEAD; ++k) {
+    if (k_in < n_rounds) issue();
+    qs_cp_commit();
+  }
   Row<P> r;
   load_row(r, s, g);
   if (HIER) load_hier(r, s, g);
-  const int p = width(r);
   ReadRow rr;
   ReadDone done;
   if (READS) {
@@ -816,11 +1021,22 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
     init_done(done);
   }
   bool won = false, lost = false, e = false, h = false, c = false;
+  // Without vote input a row's tally changes only where it is recycled
+  // (kernels.py quorum_multiround_impl :1106-1183 merges votes only with
+  // has_votes; _apply_recycle :931 makes the row a leader with no
+  // votes, whose tally gives neither flag): so it is taken once, before
+  // the rounds, and counts for the rounds before the row's first recycle.
+  bool won0 = false, lost0 = false;
+  if (!VOTES) tally(r, won0, lost0);
   bool recycled = false;
-  for (int k = 0; k < n_rounds; ++k) {
-    const size_t cells = ((size_t)k * s.G + g) * p;
+  const uint32_t* d = col;
+  size_t rg = g;
+  for (int k = 0; k < n_rounds; ++k, rg += s.G) {
+    if (k_in < n_rounds) issue();
+    qs_cp_commit();
+    qs_cp_wait<K3_AHEAD>();  // round k's copies have landed in slot d
     if (CHURN) {
-      const int32_t rec = churn_map[(size_t)k * s.G + g];
+      const int32_t rec = (int32_t)d[(size_t)lay.churn * B];
       if (rec >= 0) {
         const size_t at = (size_t)k * n_records + rec;
         recycle(r, churn_term[at], churn_start[at], churn_last[at]);
@@ -828,24 +1044,31 @@ __global__ void multiround_kernel(State s, const int32_t* ack,
         recycled = true;
       }
     }
-    ingest_dense<P, VOTES, true>(r, ack + cells, nullptr,
-                                 VOTES ? vote_new + cells : nullptr, track);
-    bool w, l, e0, h0, c0;
-    finish<P, false, HIER>(r, s, g, w, l, e0, h0, c0);
-    if (commit_trace != nullptr) commit_trace[(size_t)k * s.G + g] = r.committed;
+    const RingBytes votes{d + (size_t)lay.votes * B, B,
+                          VOTES ? (int)((uintptr_t)(vote_new + rg * p) & 3) : 0};
+    ingest_dense<P, VOTES, true>(r, RingWords{d + (size_t)lay.ack * B, B},
+                                 nullptr, votes, track);
+    bool w = won0 && !recycled, l = lost0 && !recycled;
+    if (VOTES) tally(r, w, l);
+    commit_rule<P, HIER>(r);
+    if (commit_trace != nullptr) commit_trace[rg] = r.committed;
     won = won || w;
     lost = lost || l;
     if (READS) {
-      const size_t at = ((size_t)k * s.G + g) * rd.S;
-      read_plane(r, rr, rd.S, rd.stage_idx + at, rd.stage_cnt + at,
-                 rd.echo + at * p, done);
+      const int shift = (int)((uintptr_t)(rd.echo + rg * S * p) & 3);
+      const uint32_t* echo = d + (size_t)lay.echo * B;
+      const RingWords idx{d + (size_t)lay.idx * B, B}, cnt{d + (size_t)lay.cnt * B, B};
+      read_plane(r, rr, S, idx, cnt, RingBytes{echo, B, shift}, done);
     }
     if (DO_TICK && tick_mask[k]) {
+      bool e0, h0, c0;
       tick(r, s, g, e0, h0, c0);
       e = e || e0;
       h = h || h0;
       c = c || c0;
     }
+    d += slot_words;
+    if (d == ring_end) d = col;
   }
   store_row<P, VOTES, CHURN>(r, s, g);
   if (CHURN && reset_telem && recycled) s.telem_prev_committed[g] = 0;
@@ -900,27 +1123,23 @@ __global__ void multistep_scatter_kernel(
   }
 }
 
-// B13 and B8: R engine rounds in one launch, the row in registers across
-// all of them; the state is read once and written once, the flags OR over
-// the rounds.  Each round ingests, then runs the tail with its tick
-// (finish, DO_TICK: every round ticks).  The ingest, per round k:
-// * planes (STAGED false): ``touched`` and ``ack`` (R, G, P), and votes
-//   ``vote_new`` (R, G, P) merged first-wins.  Dense (quorum_multistep_
-//   dense_impl): match = max(match, touched ? ack : 0) and contact where
-//   any cell is touched.  ``sparse`` (quorum_multistep_impl, on the
-//   pre-pass's planes): ``ack`` is the biased scratch, an untouched cell
-//   keeps its match (the dense form would raise a negative one to 0) and
-//   the contact comes from ``contacted`` (R, G);
-// * STAGED (bench.py _staged_multistep_fn): no input; slots 0 and 1 are
-//   touched with base_index + 1 + k, the dense form, the flags returned
-//   are zeros as the reference returns.
-// ``track`` (track_contact) and ``sparse`` are launch arguments.
-template <int P, bool DO_TICK, bool VOTES, bool HIER, bool STAGED>
+// B13: R engine rounds in one launch, the row in registers across all of
+// them; the state is read once and written once, the flags OR over the
+// rounds.  Each round ingests, then runs the tail with its tick (finish,
+// DO_TICK: every round ticks).  The ingest, per round k, from the planes
+// ``touched`` and ``ack`` (R, G, P), and votes ``vote_new`` (R, G, P)
+// merged first-wins.  Dense (quorum_multistep_dense_impl): match =
+// max(match, touched ? ack : 0) and contact where any cell is touched.
+// ``sparse`` (quorum_multistep_impl, on the pre-pass's planes): ``ack``
+// is the biased scratch, an untouched cell keeps its match (the dense
+// form would raise a negative one to 0) and the contact comes from
+// ``contacted`` (R, G).  ``track`` (track_contact) and ``sparse`` are
+// launch arguments.
+template <int P, bool DO_TICK, bool VOTES, bool HIER>
 __global__ void multistep_kernel(State s, const int32_t* ack,
                                  const bool* touched, const int8_t* vote_new,
                                  const bool* contacted, int n_rounds,
-                                 int32_t base_index, bool track, bool sparse,
-                                 Flags f) {
+                                 bool track, bool sparse, Flags f) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= s.G) return;
   Row<P> r;
@@ -933,32 +1152,25 @@ __global__ void multistep_kernel(State s, const int32_t* ack,
     bool hit = false;
     QS_UNROLL
     for (int i = 0; i < p; ++i) {
-      bool t;
-      int32_t a;
-      if (STAGED) {
-        t = i < 2;
-        a = t ? wadd(wadd(base_index, 1), k) : 0;
-      } else {
-        t = touched[cells + i];
-        a = ack[cells + i];
-        if (sparse) a = unbias((uint32_t)a);
-      }
+      const bool t = touched[cells + i];
+      int32_t a = ack[cells + i];
+      if (sparse) a = unbias((uint32_t)a);
       if (t)
         r.match[i] = imax(r.match[i], a);
       else if (!sparse)
         r.match[i] = imax(r.match[i], 0);
       r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
-      r.active[i] = r.active[i] || t;
+      r.active |= (uint32_t)t << i;
       hit = hit || t;
     }
-    if (!STAGED && sparse && track) hit = contacted[(size_t)k * s.G + g];
+    if (sparse && track) hit = contacted[(size_t)k * s.G + g];
     if (track && hit && r.node_state != LEADER && r.live) r.election_tick = 0;
     r.last_index = imax(r.last_index, self_column(r));
     if (VOTES) {
       QS_UNROLL
       for (int i = 0; i < p; ++i) {
         const int8_t v = vote_new[cells + i];
-        if (r.votes[i] == VOTE_NONE && v != VOTE_NONE) r.votes[i] = v;
+        if (vote(r, i) == VOTE_NONE && v != VOTE_NONE) set_vote(r, i, v);
       }
     }
     bool w, l, e0, h0, c0;
@@ -970,10 +1182,151 @@ __global__ void multistep_kernel(State s, const int32_t* ack,
     c = c || c0;
   }
   store_row<P, VOTES, false>(r, s, g);
-  if (STAGED)
-    store_flags(f, g, false, false, false, false, false);
-  else
-    store_flags(f, g, won, lost, e, h, c);
+  store_flags(f, g, won, lost, e, h, c);
+}
+
+// B8 (bench.py _staged_multistep_fn, :131): R dense rounds whose acks the
+// kernel makes itself, ticks on, no contact, no votes, no hier, the flags
+// returned zeros.  Every round of every row runs whole: the ingest of
+// base + 1 + k on slots 0 and 1 (int32 wrap), the commit rule on that
+// round's match values, and the tick.  What the round loop does not
+// change is read once, before the loop, each an exact identity of the
+// reference:
+// * the reference's round (quorum_step_dense_impl, kernels.py :686, with
+//   _finish_step :619 and tick_step :472) writes only match, next,
+//   active, votes, committed, last_index and the two clocks (the
+//   st._replace lists :656-664 and :511-515); so node_state, live,
+//   voting, quorum, self_slot, term_start, electable, rand_timeout,
+//   election_timeout, heartbeat_timeout and check_quorum_on are loop
+//   invariants, and so are is_leader (:629 / :478), the slot of the
+//   self column (:124) and the column k - 1 the commit pick reads (:79);
+// * bench.py passes has_votes=False (:173), so votes never change, and
+//   the tally (:627-630) only feeds won/lost, which the staged dispatch
+//   discards (:185): it is not computed;
+// * track_contact=False (:172): no contact reset;
+// * the acks (:159-164): touched = slot < 2 every round, ack base + 1 + r
+//   there and 0 elsewhere, so max(match, touched ? ack : 0) is
+//   max(match, base + 1 + r) on slots 0 and 1 and max(match, 0) on the
+//   others, and active |= the two low bits.
+// voting and active are bit masks; one row a thread, STAGED_BLOCK threads
+// a block.
+constexpr int STAGED_BLOCK = 128;
+
+template <int P>
+struct StagedRow {
+  static constexpr int N = P > 0 ? P : QS_MAX_GENERIC_P;
+  int32_t match[N], next[N];
+  uint32_t voting, active;
+  int32_t committed, last_index, election_tick, heartbeat_tick;
+  // the invariants
+  int32_t term_start, self_slot, ksel, rand_timeout, election_timeout,
+      heartbeat_timeout;
+  bool leader, live, can_elect, checkq_on;
+};
+
+template <int P>
+QS_HD void staged_load(StagedRow<P>& r, const State& s, int g, int p) {
+  const size_t base = (size_t)g * p;
+  r.voting = r.active = 0;
+  QS_UNROLL
+  for (int i = 0; i < p; ++i) {
+    r.match[i] = s.match[base + i];
+    r.next[i] = s.next[base + i];
+    r.voting |= (uint32_t)s.voting[base + i] << i;
+    r.active |= (uint32_t)s.active[base + i] << i;
+  }
+  r.committed = s.committed[g];
+  r.last_index = s.last_index[g];
+  r.election_tick = s.election_tick[g];
+  r.heartbeat_tick = s.heartbeat_tick[g];
+  r.term_start = s.term_start[g];
+  r.self_slot = s.self_slot[g];
+  r.ksel = wadd(s.quorum[g], -1);
+  r.rand_timeout = s.rand_timeout[g];
+  r.election_timeout = s.election_timeout[g];
+  r.heartbeat_timeout = s.heartbeat_timeout[g];
+  r.live = s.live[g];
+  r.leader = s.node_state[g] == LEADER && r.live;
+  r.can_elect = r.live && !r.leader && s.electable[g];
+  r.checkq_on = s.check_quorum_on[g];
+}
+
+// One round of the staged loop on a row; ``a`` is base + 1 + k.
+template <int P>
+QS_HD void staged_round(StagedRow<P>& r, int p, int32_t a) {
+  const uint32_t touched = p >= 2 ? 3u : 1u;
+  int32_t self = 0;
+  QS_UNROLL
+  for (int i = 0; i < p; ++i) {
+    r.match[i] = imax(r.match[i], i < 2 ? a : 0);
+    r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
+    self |= r.match[i] & ones_if(i == r.self_slot);
+  }
+  r.active |= touched;
+  r.last_index = imax(r.last_index, self);
+  // the commit rule (kth_largest over the voting slots, column ksel)
+  int32_t q;
+  if constexpr (P > 0) {
+    int32_t c[P];
+    QS_UNROLL
+    for (int i = 0; i < P; ++i) c[i] = (r.voting >> i) & 1u ? r.match[i] : INDEX_MIN;
+    sort_net<P>(c);
+    q = c[0] & ones_if(r.ksel < 1 || r.ksel >= P);
+    QS_UNROLL
+    for (int i = 1; i < P; ++i) q |= c[i] & ones_if(r.ksel == i);
+  } else {
+    q = 0;
+    for (int i = 0; i < p; ++i) {
+      const int32_t vi = (r.voting >> i) & 1u ? r.match[i] : INDEX_MIN;
+      int32_t rank = 0;
+      for (int j = 0; j < p; ++j) {
+        const int32_t vj = (r.voting >> j) & 1u ? r.match[j] : INDEX_MIN;
+        rank += (vj > vi) || (vj == vi && j < i);
+      }
+      if (rank == r.ksel) q = wadd(q, vi);
+    }
+  }
+  if (r.leader && q > r.committed && q >= r.term_start) r.committed = q;
+  // the tick
+  int32_t et = r.live ? wadd(r.election_tick, 1) : r.election_tick;
+  const bool elect_due = r.can_elect && et >= r.rand_timeout;
+  const bool checkq_due = r.leader && et >= r.election_timeout;
+  if (elect_due || checkq_due) et = 0;
+  if (checkq_due && r.checkq_on) r.active &= ~r.voting;
+  int32_t ht = r.leader ? wadd(r.heartbeat_tick, 1) : r.heartbeat_tick;
+  if (r.leader && ht >= r.heartbeat_timeout) ht = 0;
+  r.election_tick = et;
+  r.heartbeat_tick = ht;
+}
+
+template <int P>
+QS_HD void staged_store(const StagedRow<P>& r, const State& s, const Flags& f,
+                        int g, int p) {
+  const size_t base = (size_t)g * p;
+  QS_UNROLL
+  for (int i = 0; i < p; ++i) {
+    s.match[base + i] = r.match[i];
+    s.next[base + i] = r.next[i];
+    s.active[base + i] = (r.active >> i) & 1u;
+  }
+  s.committed[g] = r.committed;
+  s.last_index[g] = r.last_index;
+  s.election_tick[g] = r.election_tick;
+  s.heartbeat_tick[g] = r.heartbeat_tick;
+  store_flags(f, g, false, false, false, false, false);
+}
+
+template <int P>
+__global__ void __launch_bounds__(STAGED_BLOCK)
+    staged_kernel(State s, int n_rounds, int32_t base_index, Flags f) {
+  const int p = P > 0 ? P : s.P;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= s.G) return;
+  StagedRow<P> r;
+  staged_load(r, s, g, p);
+  int32_t a = wadd(base_index, 1);
+  for (int k = 0; k < n_rounds; ++k, a = wadd(a, 1)) staged_round(r, p, a);
+  staged_store(r, s, f, g, p);
 }
 
 // --- host-side dispatch from runtime flags to template instances --------

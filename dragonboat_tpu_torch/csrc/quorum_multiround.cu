@@ -8,7 +8,9 @@
 // quorum_multiround_reads.cu — see launch.cuh).  A pre-pass turns the
 // (K, C) recycle records into a (K, G) row -> record map; the main
 // launch then walks the K rounds per row with the row held in
-// registers, so the state is read once and written once per block.  With
+// registers, so the state is read once and written once per block, and
+// with each round's inputs brought into a shared-memory ring by cp.async
+// two rounds ahead of the round computed (multiround_kernel).  With
 // the device state machine on, the launch also stores each round's
 // watermark into a (K, G) trace for csrc/kv_plane.cu, which runs after
 // it on the same stream (4 B a row and round), and the churn map stays
@@ -53,8 +55,11 @@ extern "C" int qs_multiround(const qs::State* s, const int32_t* ack,
                                        churn_term, churn_start, churn_last,
                                        n_records, tick_mask, n_rounds,
                                        commit_trace, rd, *f, flags, cs);
-  return qs::launch_multiround<false>(st, ack, vote_new, churn_map, churn_term,
-                                      churn_start, churn_last, n_records,
-                                      tick_mask, n_rounds, commit_trace, rd,
-                                      *f, flags, cs);
+  if (flags & qs::F_HAS_HIER)
+    return qs::launch_multiround_h<false, true>(
+        st, ack, vote_new, churn_map, churn_term, churn_start, churn_last,
+        n_records, tick_mask, n_rounds, commit_trace, rd, *f, flags, cs);
+  return qs::launch_multiround_h<false, false>(
+      st, ack, vote_new, churn_map, churn_term, churn_start, churn_last,
+      n_records, tick_mask, n_rounds, commit_trace, rd, *f, flags, cs);
 }

@@ -27,8 +27,8 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("quorum_step_dense.cu", "quorum_step_dense_reads.cu",
            "quorum_step.cu", "quorum_multiround.cu",
-           "quorum_multiround_reads.cu", "telem_fold.cu", "kv_plane.cu",
-           "quorum_multistep.cu")
+           "quorum_multiround_reads.cu", "quorum_multiround_reads_hier.cu",
+           "telem_fold.cu", "kv_plane.cu", "quorum_multistep.cu")
 HEADERS = ("quorum.cuh", "launch.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + [

@@ -36,7 +36,7 @@ launch of a step kernel's ``has_hier`` instance also counts under
 a kernel of its own (``csrc/kv_plane.cu``, counter ``kv_plane``), launched
 after K1 or K3 on the same stream; a K-round block passes it each
 round's watermark through a (K, G) trace that K3 writes.  The R-round
-scans and the staged ladder dispatch share one row loop
+scans share one row loop and the staged ladder dispatch has its own
 (``csrc/quorum_multistep.cu``), counted under ``quorum_multistep``,
 ``quorum_multistep_dense`` and ``staged_multistep``.
 

@@ -382,7 +382,7 @@ def test_emulated_reads_dense_kernel_matches_plain(launch, p, s):
 
 
 @pytest.mark.parametrize("s", [4, 8])
-@pytest.mark.parametrize("p", [3, 5, 12])
+@pytest.mark.parametrize("p", [3, 5, 12, 32])
 def test_emulated_reads_multiround_kernel_matches_plain(launch, p, s):
     """K3's READS instances against the plain block: recycles mid-block
     of rows with pending slots (row 0 among them, between its two
@@ -718,3 +718,148 @@ def test_emulated_multistep_shape_checks(launch):
         tk._multistep_dense_launch(_state(f), CPU, ack, touched,
                                    torch.zeros((1, 1), dtype=torch.int8), True, True, True)
     assert tk.launch_counts() == launched
+
+
+# ----------------------------------------------------------------------
+# the row loops at block edges: G = 300 spans three 128-row blocks with a
+# partial last one; G = 257 at odd widths leaves the byte planes (votes,
+# echo) and their rows off word alignment, down to the planes' last word
+# ----------------------------------------------------------------------
+
+EDGE_G = [300, 257]
+
+
+def _misaligned(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a contiguous tensor whose data starts one byte past a
+    word boundary (a view one element into a larger buffer)."""
+    flat = torch.zeros((a.size + 1,), dtype=torch.from_numpy(a[:0]).dtype)
+    t = flat[1:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+def _churn(rng, k, c, g, must=()):
+    """(K, C) recycle records over rows [1, g), padding rows at g, and the
+    rows ``must`` recycled in round 1."""
+    rows = np.full((k, c), g, np.int32)
+    for r in range(k):
+        n = rng.integers(1, c + 1)
+        rows[r, :n] = rng.choice(np.arange(1, g), size=n, replace=False)
+    for i, row in enumerate(must):
+        rows[1][rows[1] == row] = g
+        rows[1, c - 1 - i] = row
+    start = rng.integers(0, 5, (k, c)).astype(np.int32)
+    return tuple(torch.from_numpy(a) for a in (
+        rows, rng.integers(1, 9, (k, c)).astype(np.int32), start,
+        (start + rng.integers(0, 5, (k, c))).astype(np.int32)))
+
+
+@pytest.mark.parametrize("g", EDGE_G)
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_multiround_ring_edges_match_plain(launch, p, g):
+    """K3's ring of round inputs at block edges: the plain instance with
+    churn and the fold's recycle reset, the HIER instance with votes and
+    ticks, the READS instance (S = 3) with churn, votes and the recycle
+    of a row with pending slots, and the devsm trace with kv_plane after
+    it; the vote and echo planes also from a misaligned base."""
+    k, c = 3, 9
+    rng = np.random.default_rng(7_000 + 10 * p + g)
+    f, reads = _read_block(7_000 + p + g, g, p, 3, k)
+    f = _hier_telem(f, rng)
+    ack = np.where(rng.random((k, g, p)) < 0.4, rng.integers(0, 25, (k, g, p)),
+                   -1).astype(np.int32)
+    vote_np = rng.choice([-1, -1, 0, 1], (k, g, p)).astype(np.int8)
+    churn_t = _churn(rng, k, c, g, must=(5, g - 1))
+    tick_mask = torch.from_numpy(np.array([True, False, True]))
+    ack_t = torch.from_numpy(ack)
+    cases = [
+        dict(do_tick=False, track_contact=False, has_votes=False, has_churn=True,
+             has_telem=True, purge_telem=True),
+        dict(do_tick=True, track_contact=True, has_votes=True, has_churn=True,
+             has_hier=True),
+        dict(do_tick=True, track_contact=True, has_votes=True, has_churn=True,
+             has_reads=True),
+        dict(do_tick=False, track_contact=True, has_votes=False, has_churn=True,
+             has_kv=True),
+    ]
+    for misaligned in (False, True):
+        vote_t = _misaligned(vote_np) if misaligned else torch.from_numpy(vote_np)
+        rd = (reads[0], reads[1], _misaligned(reads[2].numpy())) if misaligned else reads
+        for i, flags in enumerate(cases):
+            tag = (p, g, misaligned, i)
+            fk = f
+            kv = None
+            if flags.get("has_kv"):
+                krng = np.random.default_rng(7_500 + p + g)
+                fk = _kv_state(dict(f), krng, 16, 16)
+                kv = _kv_inputs(krng, g, 16, 16, 4, lead=(k,))
+            st = _state(fk)
+            kout = tk._multiround_launch(
+                st, CPU, ack_t, vote_t, churn_t, tick_mask, flags["do_tick"],
+                flags["track_contact"], flags["has_votes"], True,
+                flags.get("has_hier", False), reset_telem=flags.get("has_telem", False),
+                reads=rd if flags.get("has_reads") else None,
+                reset_reads=flags.get("has_reads", False), kv=kv, reset_kv=kv is not None)
+            if flags.get("has_telem"):
+                kout = kout._replace(telem=tk._telem_launch(st, CPU, 8, False, False))
+            pout = tk.quorum_multiround_impl(
+                _state(fk), ack_t, vote_t, *churn_t, tick_mask,
+                *(rd if flags.get("has_reads") else (None,) * 3),
+                *(kv if kv is not None else ()), **flags)
+            _assert_same(kout, pout, tag)
+            if flags.get("has_reads"):
+                for name in ("read_done_count", "read_done_index"):
+                    assert torch.equal(getattr(kout, name), getattr(pout, name)), (tag, name)
+            if kv is not None:
+                _assert_kv_same(kout, pout, tag)
+
+
+@pytest.mark.parametrize("g", EDGE_G)
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_staged_edges_match_plain(launch, p, g):
+    """The staged row loop at block edges, from a random state (leaders,
+    candidates and followers, dead rows, self slots out of range) and from
+    every row a leader with check-quorum on, with bases that wrap past the
+    int32 maximum."""
+    for i, (rounds, base) in enumerate(((1, 3), (9, 2**31 - 4), (12, -7))):
+        rng = np.random.default_rng(7_700 + 10 * p + g + i)
+        f = _hier_telem(_fields(7_700 + p + g + i, g, p), rng)
+        if i == 2:
+            f["node_state"][:], f["live"][:] = 2, True
+            f["check_quorum_on"][:] = True
+        kout = tk._staged_launch(_state(f), CPU, base, rounds)
+        pout = tk.staged_multistep_impl(_state(f), base, rounds)
+        _assert_same(kout, pout, (p, g, rounds, base))
+
+
+@pytest.mark.parametrize("g", EDGE_G)
+@pytest.mark.parametrize("p", WIDTHS)
+def test_emulated_multistep_edges_match_plain(launch, p, g):
+    """The dense and sparse R-round scans at block edges, everything on."""
+    r = 3
+    rng = np.random.default_rng(7_900 + 10 * p + g)
+    f = _hier_telem(_fields(7_900 + p + g, g, p), rng)
+    touched = torch.from_numpy(rng.random((r, g, p)) < 0.35)
+    ack = torch.from_numpy(rng.integers(-6, 25, (r, g, p)).astype(np.int32))
+    vote_new = torch.from_numpy(rng.choice([-1, -1, 0, 1], (r, g, p)).astype(np.int8))
+    kout = tk._multistep_dense_launch(_state(f), CPU, ack, touched, vote_new,
+                                      True, True, True, True)
+    pout = tk.quorum_multistep_dense_impl(_state(f), ack, touched, vote_new,
+                                          has_hier=True)
+    _assert_same(kout, pout, ("dense", p, g))
+    cap = 64
+    acks = tuple(torch.from_numpy(a) for a in (
+        rng.integers(0, g + 2, (r, cap)).astype(np.int32),
+        rng.integers(0, p + 1, (r, cap)).astype(np.int32),
+        rng.integers(-6, 25, (r, cap)).astype(np.int32), rng.random((r, cap)) < 0.9))
+    vts = []
+    for _ in range(r):
+        cells = rng.choice(g * p, size=32, replace=False)
+        vts.append((cells // p, cells % p))
+    vts = (torch.from_numpy(np.stack([v[0] for v in vts]).astype(np.int32)),
+           torch.from_numpy(np.stack([v[1] for v in vts]).astype(np.int32)),
+           torch.from_numpy(rng.integers(0, 2, (r, 32)).astype(np.int8)),
+           torch.from_numpy(rng.random((r, 32)) < 0.8))
+    kout = tk._multistep_launch(_state(f), CPU, acks, vts, True, True, True, True)
+    pout = tk.quorum_multistep_impl(_state(f), *acks, *vts, has_hier=True)
+    _assert_same(kout, pout, ("sparse", p, g))
