@@ -95,7 +95,12 @@ width, and the staged ladder dispatch at 131,072 x 3 from a
 ``ladder.build_state`` state for R in {1, 7, 256} and at 4,096 groups
 for every width; and K3 and the staged dispatch at block edges
 (``EDGE_SHAPES``: a partial last block, byte planes ending mid-word or
-starting one byte off a word, P in {4, 8}).  Operation bounds use the
+starting one byte off a word, P in {4, 8}); the device state machine
+at its segment edges (``KV_EDGE_WIDTHS`` at G in {257, 65,536}, after
+K1 and after K3 with the churn reset and the carry, and the purge
+alone); and the fold at G in {1, 257, 100,000, 131,073} for k in {1, 8,
+16, 33}, two folds back to back each time, and two on a side stream,
+which must draw a ticket of its own.  Operation bounds use the
 card's INT32 issue rate, read from ``nvidia-smi`` (``int32_peak``).
 Each of phases 3 to 12 drives a main path: the launch counters are
 zeroed just before it and read just after, and every kernel that path
@@ -848,22 +853,34 @@ def _time_trace(torch, ts, tk, dev, g=KV_G, p=5, k=KV_K, seed=34_000):
             "trace_bytes": trace_bytes, "shape": {"G": g, "P": p, "K": k}, "flags": flags}
 
 
-def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag):
+def _compare_telem(torch, ts, tk, fields, dev, k, count_reads, count_kv, tag, folds=1,
+                   stream=None):
+    """``folds`` folds back to back on the kernel and on the plain
+    version (on ``stream`` when given: the wrapper then draws that
+    stream's own ticket), each compared, the second on the first's
+    watermarks; returns the largest absolute difference seen."""
     st_k = ts.state_from_numpy(fields, dev)
     st_p = ts.state_from_numpy(fields, dev)
-    agg = tk.telem_fold(st_k, k, count_reads, count_kv)
-    pst, pagg = tk.telem_fold_impl(st_p, k, count_reads, count_kv)
-    torch.cuda.synchronize()
     err = 0
-    pairs = [(f"telem {n}", a, b.to(torch.int32))
-             for n, a, b in zip(tk.TelemAggregate._fields, agg, pagg)]
-    pairs.append(("telem_prev_committed", st_k.telem_prev_committed,
-                  pst.telem_prev_committed))
-    for name, a, b in pairs:
-        check(a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name} shape or dtype differs")
-        if a.numel():
-            err = max(err, int((a.long() - b.long()).abs().max()))
-        check(torch.equal(a, b), f"{tag}: {name} differs")
+    for n in range(folds):
+        if stream is None:
+            agg = tk.telem_fold(st_k, k, count_reads, count_kv)
+        else:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                agg = tk.telem_fold(st_k, k, count_reads, count_kv)
+        st_p, pagg = tk.telem_fold_impl(st_p, k, count_reads, count_kv)
+        torch.cuda.synchronize()
+        pairs = [(f"telem {name}", a, b.to(torch.int32))
+                 for name, a, b in zip(tk.TelemAggregate._fields, agg, pagg)]
+        pairs.append(("telem_prev_committed", st_k.telem_prev_committed,
+                      st_p.telem_prev_committed))
+        for name, a, b in pairs:
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{tag} fold {n}: {name} shape or dtype differs")
+            if a.numel():
+                err = max(err, int((a.long() - b.long()).abs().max()))
+            check(torch.equal(a, b), f"{tag} fold {n}: {name} differs")
     return err
 
 
@@ -1122,6 +1139,18 @@ EDGE_K3_FLAGS = (
 )
 
 
+# the device state machine at its segment edges (a warp of 32 / L rows,
+# L the power of two at or above max(E, R), ending part-way through the
+# last warp at G = 257): (V, E, R) = rung 4's, the least, the caps, R > E,
+# one row a warp with E not a power of two, a narrow buffer under 8 reads
+KV_EDGE_G = (257, 65_536)
+KV_EDGE_WIDTHS = ((16, 16, 4), (1, 1, 1), (1024, 32, 8), (16, 5, 8), (33, 17, 3),
+                  (8, 2, 8))
+# the fold at one block, a block and a row, rung 5's width and 512 blocks
+# and a row, for k in {1, 8, 16, 33} (33 the kernel's general path)
+TELEM_EDGE_G = (1, 257, 100_000, 131_073)
+
+
 def _misaligned(torch, t):
     """``t`` copied into a contiguous view that starts one byte past a word
     boundary of its buffer."""
@@ -1171,8 +1200,36 @@ def phase_edge_kernels(torch, ts, tk, dev, record):
             record("staged_multistep", {}, _equal_outputs(
                 torch, ts, tk, kout, pout, f"staged_multistep G={g} P={p} R={rounds}"))
             n += 1
-    emit({"phase": "edges_vs_plain", "compared": n, "shapes": EDGE_SHAPES})
-    return n
+    n_kv = 0
+    for g in KV_EDGE_G:
+        for d, dims in enumerate(KV_EDGE_WIDTHS):
+            for name in ("quorum_step_dense", "quorum_multiround"):
+                for j, flags in enumerate(_kv_small(name)):
+                    seed = 97_000 + g % 1000 + 10 * d + j
+                    record(name, flags, _kv_case(torch, ts, tk, dev, name, seed, g, 5, flags,
+                                                 dims, 4, 64))
+                    n_kv += 1
+    n_fold = 0
+    for g in TELEM_EDGE_G:
+        for k in (1, 8, 16, 33):
+            fields = telem_fields(ts, 98_000 + g % 1000 + k, g, 5)
+            for reads in (False, True):
+                record("telem_fold", {}, _compare_telem(
+                    torch, ts, tk, fields, dev, k, reads, reads,
+                    f"telem_fold G={g} k={k} sweeps={reads}", folds=2))
+                n_fold += 2
+    side = torch.cuda.Stream(dev)
+    record("telem_fold", {}, _compare_telem(
+        torch, ts, tk, telem_fields(ts, 99_000, 100_000, 5), dev, 8, False, False,
+        "telem_fold on a side stream", folds=2, stream=side))
+    n_fold += 2
+    tickets = [t for (d, _), t in tk._TICKETS.items() if d == str(dev)]
+    check(len(tickets) >= 2 and all(int(t.item()) == 0 for t in tickets),
+          "telem_fold: the side stream shares a ticket, or a ticket is left off 0")
+    emit({"phase": "edges_vs_plain", "compared": n, "shapes": EDGE_SHAPES,
+          "kv_compared": n_kv, "kv_shapes": {"G": KV_EDGE_G, "VER": KV_EDGE_WIDTHS},
+          "folds_compared": n_fold, "fold_G": TELEM_EDGE_G, "tickets": len(tickets)})
+    return n + n_kv + n_fold
 
 
 def phase_kernels(torch, ts, tk, dev, ladder_mod, g=100_000, p=5):

@@ -43,29 +43,38 @@
 // exercised without a GPU.  QS_LAUNCH runs the threads one after another,
 // so it checks the arithmetic and the binding but none of the concurrency
 // of the card (the event launch's atomicMax races; the asynchronous copies
-// of K3's ring complete at once).  QS_LAUNCH_COOP, for
-// kernels whose threads share memory and meet at __syncthreads (the
-// telemetry fold), runs each block's threads as real host threads with a
-// barrier, blocks one after another.  chip_smoke.py, which holds the CUDA
-// build against the plain versions on the card, is the authority on the
-// kernels.  The CUDA build never defines QS_EMULATE.
+// of K3's ring complete at once).  QS_LAUNCH_COOP, for kernels whose
+// threads meet (the telemetry fold and the device state machine), runs
+// each block's threads as fibers on the calling thread, blocks one after
+// another: a fiber runs until it waits at a barrier of its block
+// (__syncthreads) or of its warp, and the warp intrinsics (__syncwarp,
+// __ballot_sync, __shfl_sync, __shfl_xor_sync, __match_any_sync,
+// __reduce_max_sync, __reduce_add_sync) are each one exchange through the
+// warp's 32 slots at one wait of the warp's barrier.  Where the card would
+// be undefined, the emulator fails the launch: a barrier that can never
+// complete (a lane that left or skipped an intrinsic its warp runs), a
+// mask that leaves out its caller, or two lanes that name each other with
+// different masks.  chip_smoke.py, which holds the CUDA build against the
+// plain versions on the card, is the authority on the kernels.  The CUDA
+// build never defines QS_EMULATE.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
 
 #ifdef QS_EMULATE
-#include <condition_variable>
-#include <cstring>
+#include <ucontext.h>
+
+#include <atomic>
 #include <cstdint>
-#include <mutex>
-#include <thread>
+#include <cstring>
+#include <functional>
 #include <type_traits>
 #include <vector>
 struct qs_dim3 {
   unsigned x, y, z;
 };
-inline thread_local qs_dim3 threadIdx, blockIdx, blockDim;
+inline thread_local qs_dim3 threadIdx, blockIdx, blockDim, gridDim;
 #define __global__
 #define __device__
 #define __host__
@@ -76,6 +85,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
 #define cudaErrorInvalidValue 1
+#define cudaErrorLaunchFailure 719
 inline int atomicMax(int* a, int v) {
   int o = *a;
   if (v > o) *a = v;
@@ -89,52 +99,207 @@ inline unsigned atomicMax(unsigned* a, unsigned v) {
 inline int atomicAdd(int* a, int v) {
   return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicAdd(unsigned* a, unsigned v) {
+  return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
+}
 inline int __clz(int x) { return __builtin_clz((unsigned)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-// One block's threads meet here (QS_LAUNCH_COOP).
-struct qs_barrier {
-  std::mutex mu;
-  std::condition_variable cv;
-  unsigned n = 0, waiting = 0, gen = 0;
-  void wait() {
-    std::unique_lock<std::mutex> lock(mu);
-    const unsigned g = gen;
-    if (++waiting == n) {
-      waiting = 0;
-      ++gen;
-      cv.notify_all();
-    } else {
-      cv.wait(lock, [&] { return gen != g; });
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <typename T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
+// The error of the last emulated launch (cudaGetLastError clears it).
+inline int qs_emu_error = 0;
+// QS_LAUNCH_COOP: one block's threads as fibers.  A barrier completes
+// when all of its threads have arrived; a fiber that arrives earlier
+// yields to the next one that can run.
+struct qs_coop {
+  struct Bar {
+    unsigned n = 0, arrived = 0, gen = 0;
+  };
+  struct Fiber {
+    ucontext_t ctx;
+    std::vector<char> stack;
+    Bar* bar = nullptr;  // the barrier it waits at
+    unsigned gen = 0;    // ... in this generation
+    bool done = false;
+  };
+  // a warp: its barrier and the slots of its exchanges, two sets used in
+  // turn (a lane writes the next set only once every lane has read this)
+  struct Warp {
+    Bar bar;
+    unsigned long long val[2][32];
+    unsigned mask[2][32];
+  };
+  ucontext_t main;
+  std::vector<Fiber> fibers;
+  std::vector<Warp> warps;
+  Bar block;
+  unsigned cur = 0;
+  const std::function<void()>* body = nullptr;
+};
+inline thread_local qs_coop* qs_co = nullptr;
+inline void qs_coop_fault() { qs_emu_error = cudaErrorLaunchFailure; }
+inline void qs_coop_wait(qs_coop::Bar& b) {
+  qs_coop& co = *qs_co;
+  if (++b.arrived == b.n) {
+    b.arrived = 0;
+    ++b.gen;
+    return;
+  }
+  qs_coop::Fiber& f = co.fibers[co.cur];
+  f.bar = &b;
+  f.gen = b.gen;
+  swapcontext(&f.ctx, &co.main);
+}
+inline void qs_coop_entry() {
+  (*qs_co->body)();
+  qs_co->fibers[qs_co->cur].done = true;
+}
+inline void qs_run_coop(unsigned grid, unsigned block,
+                        const std::function<void()>& body) {
+  thread_local qs_coop co;
+  qs_co = &co;
+  co.body = &body;
+  co.fibers.resize(block);
+  co.warps.resize((block + 31) / 32);
+  gridDim = {grid, 1, 1};
+  blockDim = {block, 1, 1};
+  for (unsigned b = 0; b < grid; ++b) {
+    blockIdx = {b, 0, 0};
+    co.block = qs_coop::Bar();
+    co.block.n = block;
+    for (unsigned w = 0; w < co.warps.size(); ++w) {
+      co.warps[w].bar = qs_coop::Bar();
+      co.warps[w].bar.n = block - 32 * w < 32 ? block - 32 * w : 32;
+    }
+    for (qs_coop::Fiber& f : co.fibers) {
+      f.stack.resize(1 << 16);
+      f.bar = nullptr;
+      f.done = false;
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.data();
+      f.ctx.uc_stack.ss_size = f.stack.size();
+      f.ctx.uc_link = &co.main;
+      makecontext(&f.ctx, qs_coop_entry, 0);
+    }
+    for (unsigned left = block; left > 0;) {
+      bool ran = false;
+      for (unsigned t = 0; t < block; ++t) {
+        qs_coop::Fiber& f = co.fibers[t];
+        if (f.done || (f.bar != nullptr && f.bar->gen == f.gen)) continue;
+        f.bar = nullptr;
+        co.cur = t;
+        threadIdx = {t, 0, 0};
+        swapcontext(&co.main, &f.ctx);
+        ran = true;
+        left -= f.done;
+      }
+      if (!ran) {  // every fiber left waits at a barrier that cannot complete
+        qs_coop_fault();
+        return;
+      }
     }
   }
-};
-inline qs_barrier* qs_block_barrier = nullptr;
-inline void __syncthreads() { qs_block_barrier->wait(); }
-#define QS_LAUNCH_COOP(kern, grid, block, stream, ...)                  \
-  do {                                                                  \
-    for (unsigned qs_b = 0; qs_b < unsigned(grid); ++qs_b) {            \
-      qs_barrier qs_bar;                                                \
-      qs_bar.n = unsigned(block);                                       \
-      qs_block_barrier = &qs_bar;                                       \
-      std::vector<std::thread> qs_threads;                              \
-      for (unsigned qs_t = 0; qs_t < unsigned(block); ++qs_t)           \
-        qs_threads.emplace_back([&, qs_b, qs_t] {                       \
-          blockDim = {unsigned(block), 1, 1};                           \
-          blockIdx = {qs_b, 0, 0};                                      \
-          threadIdx = {qs_t, 0, 0};                                     \
-          kern(__VA_ARGS__);                                            \
-        });                                                             \
-      for (auto& qs_th : qs_threads) qs_th.join();                      \
-    }                                                                   \
-  } while (0)
+}
+#define QS_LAUNCH_COOP(kern, grid, block, stream, ...) \
+  qs_run_coop(unsigned(grid), unsigned(block), [&] { kern(__VA_ARGS__); })
+inline void __syncthreads() { qs_coop_wait(qs_co->block); }
+// One exchange of a warp intrinsic: publish ``v`` under ``mask``, wait for
+// the warp, and return the slots every lane wrote.
+inline const unsigned long long* qs_exchange(unsigned mask, unsigned long long v) {
+  qs_coop::Warp& w = qs_co->warps[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32, set = w.bar.gen & 1;
+  w.val[set][lane] = v;
+  w.mask[set][lane] = mask;
+  qs_coop_wait(w.bar);
+  if (!((mask >> lane) & 1u)) qs_coop_fault();
+  for (unsigned i = 0; i < 32; ++i)
+    if (((mask >> i) & 1u) && w.mask[set][i] != mask) qs_coop_fault();
+  return w.val[set];
+}
+template <typename T>
+inline unsigned long long qs_bits(T v) {
+  static_assert(sizeof(T) <= 8, "a warp exchange moves at most 8 bytes");
+  unsigned long long b = 0;
+  memcpy(&b, &v, sizeof(T));
+  return b;
+}
+template <typename T>
+inline T qs_from_bits(unsigned long long b) {
+  T v;
+  memcpy(&v, &b, sizeof(T));
+  return v;
+}
+inline unsigned qs_lane_id() { return threadIdx.x % 32; }
+inline void __syncwarp(unsigned mask = 0xffffffffu) { qs_exchange(mask, 0); }
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const unsigned long long* l = qs_exchange(mask, pred != 0);
+  unsigned r = 0;
+  for (unsigned i = 0; i < 32; ++i)
+    if (((mask >> i) & 1u) && l[i]) r |= 1u << i;
+  return r;
+}
+inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
+template <typename T>
+inline T __shfl_sync(unsigned mask, T v, int src, int width = 32) {
+  const unsigned long long* l = qs_exchange(mask, qs_bits(v));
+  const unsigned base = qs_lane_id() & ~(unsigned)(width - 1);
+  return qs_from_bits<T>(l[base + ((unsigned)src & (unsigned)(width - 1))]);
+}
+template <typename T>
+inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask, int width = 32) {
+  const unsigned long long* l = qs_exchange(mask, qs_bits(v));
+  const unsigned lane = qs_lane_id(), src = lane ^ (unsigned)lane_mask;
+  const unsigned seg = ~(unsigned)(width - 1);
+  return qs_from_bits<T>(l[(src & seg) == (lane & seg) ? src : lane]);
+}
+template <typename T>
+inline unsigned __match_any_sync(unsigned mask, T v) {
+  const unsigned long long b = qs_bits(v);
+  const unsigned long long* l = qs_exchange(mask, b);
+  unsigned r = 0;
+  for (unsigned i = 0; i < 32; ++i)
+    if (((mask >> i) & 1u) && l[i] == b) r |= 1u << i;
+  return r;
+}
+// the reductions run over the lanes of the caller's mask only
+template <typename T, typename F>
+inline T qs_reduce(unsigned mask, T v, T init, F f) {
+  const unsigned long long* l = qs_exchange(mask, qs_bits(v));
+  T r = init;
+  for (unsigned i = 0; i < 32; ++i)
+    if ((mask >> i) & 1u) r = f(r, qs_from_bits<T>(l[i]));
+  return r;
+}
+inline int __reduce_max_sync(unsigned mask, int v) {
+  return qs_reduce(mask, v, v, [](int a, int b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_max_sync(unsigned mask, unsigned v) {
+  return qs_reduce(mask, v, v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
+  return qs_reduce(mask, v, 0u, [](unsigned a, unsigned b) { return a + b; });
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
   return 0;
 }
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = qs_emu_error;
+  qs_emu_error = 0;
+  return e;
+}
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == 0 ? "no error"
+                : "emulated launch failed: a warp or block barrier cannot "
+                  "complete, or a warp intrinsic's mask is inconsistent";
+}
 #define QS_LAUNCH(kern, grid, block, stream, ...)                      \
   do {                                                                 \
+    gridDim = {unsigned(grid), 1, 1};                                  \
     blockDim = {unsigned(block), 1, 1};                                \
     for (unsigned qs_b = 0; qs_b < unsigned(grid); ++qs_b)             \
       for (unsigned qs_t = 0; qs_t < unsigned(block); ++qs_t) {        \
@@ -215,6 +380,7 @@ constexpr int32_t INDEX_MIN = -2147483647 - 1;
 // MAX_KERNEL_READ_SLOTS): S is a launch argument, the slots registers.
 #define QS_MAX_READ_SLOTS 8
 constexpr int BLOCK = 256;
+constexpr unsigned WARP_ALL = 0xffffffffu;  // every lane of a warp
 
 // Launch flags, one bit each (ops/kernels.py passes the same bits).
 constexpr int F_DO_TICK = 1;

@@ -114,8 +114,9 @@ _SIGNATURES = {
     "qs_multiround": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT,
                       _VP, _VP, _VP, _VP, _INT, _VP],
     # qs_telem(state, read_count, n_read_slots, kv_ent_index, n_kv_ents, k,
-    #          out, cand, n_cand, flags, stream)
-    "qs_telem": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP],
+    #          out, cand, n_cand, counts, n_counts, ticket, flags, stream)
+    "qs_telem": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _VP, _INT,
+                 _VP, _INT, _VP],
     # qs_kv_plane(kv, flags, stream)
     "qs_kv_plane": [_VP, _INT, _VP],
     # qs_multistep_dense(state, ack_max, touched, vote_new, n_rounds,

@@ -1068,9 +1068,10 @@ def telem_fold(
 
 
 def _telem_launch(st, dev, k, count_reads, count_kv) -> TelemAggregate:
-    """Zero the aggregate block, then the row pass (counters and each
-    block's top-K candidates) and the single-block top-K merge, on the
-    current stream after whatever step ran before."""
+    """The fold's one launch on the current stream, after whatever step
+    ran before: each block's counters and top-K candidates go to scratch,
+    and the last block to finish (by the stream's ticket) writes the
+    aggregate block."""
     cst = _cstate(st)
     g = st.match.shape[0]
     k = min(int(k), g)
@@ -1080,14 +1081,30 @@ def _telem_launch(st, dev, k, count_reads, count_kv) -> TelemAggregate:
     if count_kv:
         _check(st.kv_ent_index, "kv_ent_index", (g, n_ents), I32)
     block = torch.empty((TELEM_HEAD + 2 * k,), dtype=I32, device=dev)
-    n_blocks = (g + _TELEM_BLOCK - 1) // _TELEM_BLOCK
+    n_blocks = max((g + _TELEM_BLOCK - 1) // _TELEM_BLOCK, 1)
     cand = torch.empty((max(n_blocks * k, 1),), dtype=torch.int64, device=dev)
+    counts = torch.empty((n_blocks * TELEM_HEAD,), dtype=I32, device=dev)
     flags = (_F_COUNT_READS if count_reads else 0) | (_F_COUNT_KV if count_kv else 0)
     _run("telem_fold", dev, lambda lib, stream: lib.qs_telem(
         ctypes.byref(cst), _ptr(st.read_count), n_slots, _ptr(st.kv_ent_index),
-        n_ents, k, _ptr(block), _ptr(cand), cand.numel(), flags, stream,
+        n_ents, k, _ptr(block), _ptr(cand), cand.numel(), _ptr(counts),
+        counts.numel(), _ptr(_telem_ticket(dev, stream)), flags, stream,
     ))
     return _telem_view(block, k)
+
+
+# one fold ticket per (device, stream): the fold's last block finds itself
+# by it and puts it back to 0, so folds on one stream take turns on it and
+# a fold on another stream never shares it
+_TICKETS: dict = {}
+
+
+def _telem_ticket(dev: torch.device, stream) -> torch.Tensor:
+    key = (str(dev), stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros((1,), dtype=I32, device=dev)
+    return ticket
 
 
 def _with_telem(st, dev, out, has_telem, telem_k, count_reads,

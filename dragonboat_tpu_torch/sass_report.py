@@ -34,7 +34,9 @@ from .ops import _build
 # (``staged_kernel``; in trees before it, the STAGED instance of
 # ``multistep_kernel``), K3 as rung 5 runs it, with hier as rung 5 with
 # hier, its READS instance as rung 4's mixed phase, its plain one as rung
-# 4's write window and the host loop, and with ticks
+# 4's write window and the host loop, and with ticks; the device state
+# machine and its purge; the telemetry fold (``telem_kernel``; in trees
+# before it, ``telem_rows_kernel`` and ``telem_topk_kernel``)
 DEFAULT_MATCH = (
     "qs::multistep_kernel<3, true, false, false, true>",
     "qs::staged_kernel<",
@@ -43,10 +45,18 @@ DEFAULT_MATCH = (
     "qs::multiround_kernel<5, false, false, false, false, false>",
     "qs::multiround_kernel<5, false, false, false, false, true>",
     "qs::multiround_kernel<5, true, false, false, false, false>",
+    "qs::kv_plane_kernel",
+    "qs::kv_purge_kernel",
+    "qs::telem_kernel",
+    "qs::telem_rows_kernel",
+    "qs::telem_topk_kernel",
 )
-# the rows each kernel family runs at on its main path
+# the rows each kernel family runs at on its main path (rung 4 devsm's
+# 65,536 for the device state machine, rung 5's 100,000 for the fold)
 SHAPES = {"multistep_kernel": (131_072,), "staged_kernel": (131_072,),
-          "multiround_kernel": (100_000,)}
+          "multiround_kernel": (100_000,), "kv_plane_kernel": (65_536,),
+          "kv_purge_kernel": (65_536,), "telem_kernel": (100_000,),
+          "telem_rows_kernel": (100_000,), "telem_topk_kernel": (256,)}
 
 # compute capability 9.0: registers, warps and blocks an SM, and the
 # register file's allocation unit (registers a warp, rounded up to 256)
@@ -173,6 +183,16 @@ def block_of(name: str) -> int:
     return _const("BLOCK", 256)
 
 
+def lanes_a_row(fam: str) -> int:
+    """Threads a row: the device state machine's segment at the main
+    path's widths (E = 16, R = 4: 16 lanes) in a tree whose kernel runs
+    one (``kv_lane`` in ``csrc/kv_plane.cu``); 1 elsewhere."""
+    if fam not in ("kv_plane_kernel", "kv_purge_kernel"):
+        return 1
+    with open(os.path.join(_build.SRC_DIR, "kv_plane.cu")) as f:
+        return 16 if "kv_lane(" in f.read() else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(_build.BUILD_DIR, "sass"))
@@ -199,8 +219,9 @@ def main(argv=None) -> int:
         info = entries.get(mangled, {})
         short = pretty.split("(")[0]
         block = block_of(short)
-        fam = re.search(r"qs::(\w+)<", short)
-        rows = SHAPES.get(fam.group(1) if fam else "", (100_000,))[0]
+        fam = re.search(r"qs::(\w+)[<(]", short + "(")
+        fam = fam.group(1) if fam else ""
+        rows = SHAPES.get(fam, (100_000,))[0] * lanes_a_row(fam)
         if short.startswith("void qs::multiround_kernel") and short.endswith("true>"):
             rows = 65_536  # the READS instance runs at rung 4's width
         dyn = _dyn_smem(short)
