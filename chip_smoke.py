@@ -100,7 +100,13 @@ at its segment edges (``KV_EDGE_WIDTHS`` at G in {257, 65,536}, after
 K1 and after K3 with the churn reset and the carry, and the purge
 alone); and the fold at G in {1, 257, 100,000, 131,073} for k in {1, 8,
 16, 33}, two folds back to back each time, and two on a side stream,
-which must draw a ticket of its own.  Operation bounds use the
+which must draw a ticket of its own; and K1 (everything on, the hier
+rule, the read plane at S = 4 and 8) and K2 (with and without contact
+tracking and votes, the hier rule) at their row slabs' edges, G in {1,
+257, 300, 4,099} for every peer width, each with its planes aligned and
+as views that start off a 16-byte boundary, and two K2 launches back to
+back on the current stream and on a side stream, whose contacted scratch
+must be all zero after each.  Operation bounds use the
 card's INT32 issue rate, read from ``nvidia-smi`` (``int32_peak``).
 Each of phases 3 to 12 drives a main path: the launch counters are
 zeroed just before it and read just after, and every kernel that path
@@ -1151,21 +1157,118 @@ KV_EDGE_WIDTHS = ((16, 16, 4), (1, 1, 1), (1024, 32, 8), (16, 5, 8), (33, 17, 3)
 TELEM_EDGE_G = (1, 257, 100_000, 131_073)
 
 
+# K1 and K2 at their row slabs' edges: one row, a block and a row, a
+# ragged last block, many blocks, at every peer width; K1 with everything
+# on, with the hier rule, and with the read plane at S = 4 and (with the
+# hier rule) S = 8; K2 with contact tracking and votes, with neither, and
+# with the hier rule
+STEP_EDGE_G = (1, 257, 300, 4_099)
+STEP_EDGE_P = (1, 2, 3, 4, 5, 6, 7, 8, 12)
+_ALL_ON = dict(do_tick=True, track_contact=True, has_votes=True)
+STEP_EDGE_K1 = ((_ALL_ON, None), (dict(_ALL_ON, has_hier=True), None),
+                (dict(_ALL_ON, has_reads=True), 4),
+                (dict(_ALL_ON, has_reads=True, has_hier=True), 8))
+STEP_EDGE_K2 = (_ALL_ON, dict(do_tick=False, track_contact=False, has_votes=False),
+                dict(_ALL_ON, has_hier=True))
+# the planes passed as views that start off a 16-byte boundary
+STEP_EDGE_PLANES = ("match", "next", "voting", "active", "votes", "near", "read_index",
+                    "read_count", "read_acks")
+
+
 def _misaligned(torch, t):
-    """``t`` copied into a contiguous view that starts one byte past a word
-    boundary of its buffer."""
-    buf = torch.zeros((t.numel() * t.element_size() + 1,), dtype=torch.uint8, device=t.device)
-    out = buf[1:].view(t.dtype).view(t.shape) if t.element_size() == 1 else None
-    check(out is not None, "only byte planes are misaligned")
+    """``t`` copied into a contiguous view that starts one element past
+    the start of its buffer: one byte past a word boundary for a byte
+    plane, off a 16-byte boundary for any."""
+    buf = torch.zeros((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
     out.copy_(t)
     return out
+
+
+def _step_edges(torch, ts, tk, dev, record):
+    """K1 and K2 at STEP_EDGE_G x STEP_EDGE_P over STEP_EDGE_K1 and
+    STEP_EDGE_K2, each with its planes aligned and as misaligned views;
+    and two K2 launches back to back on one state, on the current stream
+    and on a side stream, whose contacted scratch must be all zero after
+    each.  Returns the comparisons made."""
+    n = 0
+    side = torch.cuda.Stream(dev)
+    for g in STEP_EDGE_G:
+        for p in STEP_EDGE_P:
+            for i, (flags, s) in enumerate(STEP_EDGE_K1):
+                seed = 110_000 + 10 * g + 100 * p + i
+                fields = random_fields(ts, seed, g, p, s)
+                inputs = _inputs("quorum_step_dense", seed, g, p, s=s)
+                for mis in (False, True):
+                    st_k = ts.state_from_numpy(fields, dev)
+                    args = _device_args(torch, inputs, dev)
+                    if mis:
+                        st_k = st_k._replace(**{f: _misaligned(torch, getattr(st_k, f))
+                                                for f in STEP_EDGE_PLANES})
+                        args = [_misaligned(torch, a) for a in args]
+                    kout = tk.quorum_step_dense(st_k, *args, **flags)
+                    pout = tk.quorum_step_dense_impl(ts.state_from_numpy(fields, dev), *args,
+                                                     **flags)
+                    torch.cuda.synchronize()
+                    record("quorum_step_dense", flags, _equal_outputs(
+                        torch, ts, tk, kout, pout,
+                        f"quorum_step_dense G={g} P={p} S={s} misaligned={mis} {flags}"))
+                    n += 1
+            for i, flags in enumerate(STEP_EDGE_K2):
+                seed = 120_000 + 10 * g + 100 * p + i
+                fields = random_fields(ts, seed, g, p)
+                inputs = sparse_inputs(seed, g, p, max(8, 2 * g))
+                for mis in (False, True):
+                    st_k = ts.state_from_numpy(fields, dev)
+                    if mis:
+                        st_k = st_k._replace(**{f: _misaligned(torch, getattr(st_k, f))
+                                                for f in STEP_EDGE_PLANES[:6]})
+                    args = _device_args(torch, inputs, dev)
+                    kout = tk.quorum_step(st_k, *args, **flags)
+                    pout = tk.quorum_step_impl(ts.state_from_numpy(fields, dev), *args, **flags)
+                    torch.cuda.synchronize()
+                    record("quorum_step", flags, _equal_outputs(
+                        torch, ts, tk, kout, pout,
+                        f"quorum_step G={g} P={p} misaligned={mis} {flags}"))
+                    n += 1
+            for on_side in (False, True):
+                seed = 130_000 + 10 * g + 100 * p + on_side
+                fields = random_fields(ts, seed, g, p)
+                st_k = ts.state_from_numpy(fields, dev)
+                st_p = ts.state_from_numpy(fields, dev)
+                for k in range(2):
+                    args = _device_args(torch, sparse_inputs(seed + k, g, p, max(8, 2 * g)), dev)
+                    if on_side:
+                        side.wait_stream(torch.cuda.current_stream(dev))
+                        with torch.cuda.stream(side):
+                            kout = tk.quorum_step(st_k, *args, **_ALL_ON)
+                            stream = side.cuda_stream
+                    else:
+                        kout = tk.quorum_step(st_k, *args, **_ALL_ON)
+                        stream = torch.cuda.current_stream(dev).cuda_stream
+                    pout = tk.quorum_step_impl(st_p, *args, **_ALL_ON)
+                    st_p = pout.state
+                    torch.cuda.synchronize()
+                    record("quorum_step", _ALL_ON, _equal_outputs(
+                        torch, ts, tk, kout, pout,
+                        f"quorum_step G={g} P={p} launch {k} side={on_side}"))
+                    scratch = tk._CONTACTED.get((str(dev), stream, g))
+                    check(scratch is not None and not bool(scratch.any()),
+                          f"quorum_step G={g} P={p} launch {k} side={on_side}: the contacted "
+                          "scratch is missing or left off zero")
+                    n += 1
+    streams = {key[1] for key in tk._CONTACTED if key[0] == str(dev)}
+    check(side.cuda_stream in streams and len(streams) >= 2,
+          "quorum_step: the side stream shares the contacted scratch")
+    return n
 
 
 def phase_edge_kernels(torch, ts, tk, dev, record):
     """K3 over EDGE_K3_FLAGS and the staged loop from random states (R = 9
     with a base wrapping past the int32 maximum, R = 256) at EDGE_SHAPES,
-    K3 once more with its vote and echo planes starting mid-word; each
-    against its plain version."""
+    K3 once more with its vote and echo planes starting mid-word; the
+    device state machine and the fold at their edges; K1 and K2 at their
+    row slabs' edges (``_step_edges``); each against its plain version."""
     name, n = "quorum_multiround", 0
     for g, p in EDGE_SHAPES:
         for i, flags in enumerate(EDGE_K3_FLAGS):
@@ -1226,10 +1329,12 @@ def phase_edge_kernels(torch, ts, tk, dev, record):
     tickets = [t for (d, _), t in tk._TICKETS.items() if d == str(dev)]
     check(len(tickets) >= 2 and all(int(t.item()) == 0 for t in tickets),
           "telem_fold: the side stream shares a ticket, or a ticket is left off 0")
+    n_steps = _step_edges(torch, ts, tk, dev, record)
     emit({"phase": "edges_vs_plain", "compared": n, "shapes": EDGE_SHAPES,
           "kv_compared": n_kv, "kv_shapes": {"G": KV_EDGE_G, "VER": KV_EDGE_WIDTHS},
-          "folds_compared": n_fold, "fold_G": TELEM_EDGE_G, "tickets": len(tickets)})
-    return n + n_kv + n_fold
+          "folds_compared": n_fold, "fold_G": TELEM_EDGE_G, "tickets": len(tickets),
+          "steps_compared": n_steps, "steps_shapes": {"G": STEP_EDGE_G, "P": STEP_EDGE_P}})
+    return n + n_kv + n_fold + n_steps
 
 
 def phase_kernels(torch, ts, tk, dev, ladder_mod, g=100_000, p=5):

@@ -20,23 +20,32 @@ template <bool READS>
 int launch_dense(const State& st, const int32_t* ack_max, const bool* touched,
                  const int8_t* vote_new, const Reads& rd, const Flags& fl,
                  int flags, cudaStream_t cs) {
-  const int grid = grid_for(st.G);
-  if (grid == 0) return 0;
+  if (st.G == 0) return 0;
   const bool track = flags & F_TRACK_CONTACT;
+  const bool votes = flags & F_HAS_VOTES, hier = flags & F_HAS_HIER;
+  const int S = READS ? rd.S : 0;
+  // the row slabs in shared memory (see dense_kernel)
+  const int block = slab_rows(
+      [&](int rows) { return dense_slab(st.P, S, rows, votes, hier, READS).bytes; });
+  const DenseSlab lay = dense_slab(st.P, S, block, votes, hier, READS);
+  const size_t smem = lay.bytes;
+  const int grid = (int)(((long long)st.G + block - 1) / block);
+  int err = 0;
   with_p(st.P, [&](auto pc) {
     with_bool(flags & F_DO_TICK, [&](auto tick) {
-      with_bool(flags & F_HAS_VOTES, [&](auto votes) {
-        with_bool(flags & F_HAS_HIER, [&](auto hier) {
+      with_bool(votes, [&](auto vc) {
+        with_bool(hier, [&](auto hc) {
           auto kern = dense_kernel<decltype(pc)::value, decltype(tick)::value,
-                                   decltype(votes)::value,
-                                   decltype(hier)::value, READS>;
-          QS_LAUNCH(kern, grid, BLOCK, cs, st, ack_max, touched, vote_new,
-                    track, rd, fl);
+                                   decltype(vc)::value, decltype(hc)::value, READS>;
+          err = (int)qs_set_smem(kern, smem);
+          if (err != 0) return;
+          QS_LAUNCH_COOP_DYN(kern, grid, block, smem, cs, st, ack_max, touched,
+                             vote_new, track, rd, fl, lay);
         });
       });
     });
   });
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // K3's main launch, after the churn-map pre-pass, for one value of the

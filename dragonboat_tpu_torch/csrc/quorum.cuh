@@ -19,7 +19,9 @@
 // launch reads each state field of the row once and writes back, whole,
 // each field it may change (store_row); the K-round kernel keeps the row
 // in registers across all K rounds and brings each round's inputs into
-// shared memory rounds ahead (see multiround_kernel).
+// shared memory rounds ahead (see multiround_kernel); the single-round
+// steps K1 and K2 stage a block's rows of every per-peer plane through
+// shared memory, moved whole by bulk copies (see dense_kernel).
 //
 // Bound on the H100.  The work is a handful of integer compares per byte,
 // so the kernels are bound by memory traffic (3.35 TB/s), not by
@@ -55,7 +57,10 @@
 // complete (a lane that left or skipped an intrinsic its warp runs), a
 // mask that leaves out its caller, or two lanes that name each other with
 // different masks.  chip_smoke.py, which holds the CUDA build against the
-// plain versions on the card, is the authority on the kernels.  The CUDA
+// plain versions on the card, is the authority on the kernels.  K1 and
+// K2's row pass, whose threads share a block's slabs, launch the same
+// way (QS_LAUNCH_COOP_DYN); their bulk copies are memcpy and their
+// barrier and grid dependency waits have nothing to wait for.  The CUDA
 // build never defines QS_EMULATE.
 #pragma once
 
@@ -318,17 +323,47 @@ inline std::vector<uint32_t> qs_dyn_smem;
     qs_dyn_smem.assign(((size_t)(smem) + 3) / 4, 0xdeadbeefu);         \
     QS_LAUNCH(kern, grid, block, stream, __VA_ARGS__);                 \
   } while (0)
-// The asynchronous copy to shared memory completes at once.
+// A cooperative launch with dynamic shared memory (K1's and K2's row
+// slabs): the blocks run one after another, so one buffer serves them.
+#define QS_LAUNCH_COOP_DYN(kern, grid, block, smem, stream, ...)       \
+  do {                                                                 \
+    qs_dyn_smem.assign(((size_t)(smem) + 3) / 4, 0xdeadbeefu);         \
+    QS_LAUNCH_COOP(kern, grid, block, stream, __VA_ARGS__);            \
+  } while (0)
+// K2's row launch after its event launch (programmatic dependent launch
+// on the card): the event launch has run to its end before it.
+#define QS_LAUNCH_PDL QS_LAUNCH_COOP_DYN
+inline void qs_grid_wait() {}
+inline void qs_grid_launch_dependents() {}
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+// The asynchronous copies to shared memory complete at once; the bulk
+// copies' barrier has nothing to wait for.
 inline void qs_cp_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
 inline void qs_cp_commit() {}
 template <int N>
 inline void qs_cp_wait() {}
+inline void qs_bar_init(uint64_t*) {}
+inline void qs_bulk_load(void* dst, const void* src, unsigned n, uint64_t*) {
+  memcpy(dst, src, n);
+}
+inline void qs_bar_expect(uint64_t*, unsigned) {}
+inline void qs_bar_wait(uint64_t*) {}
+inline void qs_bulk_store_fence() {}
+inline void qs_bulk_store(void* dst, const void* src, unsigned n) { memcpy(dst, src, n); }
+inline void qs_bulk_store_wait() {}
 template <typename K>
 inline cudaError_t qs_set_smem(K, size_t) { return 0; }
 #define QS_UNROLL
+#define QS_NO_UNROLL
 #else
 #include <cuda_runtime.h>
 #include <type_traits>
+#include <utility>
 #define QS_LAUNCH(kern, grid, block, stream, ...) \
   kern<<<(grid), (block), 0, (stream)>>>(__VA_ARGS__)
 #define QS_LAUNCH_COOP QS_LAUNCH
@@ -351,6 +386,67 @@ template <int N>
 __device__ __forceinline__ void qs_cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// The TMA unit's 1-D bulk copies: global to shared memory, completed on
+// an mbarrier that counts the bytes to land (init, the copies, then one
+// arrival that expects their total); and shared to global memory, in a
+// bulk group its issuer waits for before the block's shared memory goes
+// (the writers' generic stores made visible to the copy first).
+__device__ __forceinline__ unsigned qs_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void qs_bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(qs_smem(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void qs_bulk_load(void* dst, const void* src, unsigned n,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+      "%2, [%3];\n" ::"r"(qs_smem(dst)),
+      "l"(src), "r"(n), "r"(qs_smem(bar))
+      : "memory");
+}
+__device__ __forceinline__ void qs_bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          qs_smem(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void qs_bar_wait(uint64_t* bar) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(qs_smem(bar))
+        : "memory");
+  }
+}
+__device__ __forceinline__ void qs_bulk_store_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void qs_bulk_store(void* dst, const void* src, unsigned n) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(qs_smem(src)), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void qs_bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Hopper's programmatic dependent launch: the event launch lets K2's row
+// launch start early, and the row launch waits for it (and its writes)
+// only where it reads what the events write.
+__device__ __forceinline__ void qs_grid_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void qs_grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 // A launch above 48 KB of dynamic shared memory must first raise the
 // kernel's limit.
 template <typename K>
@@ -359,7 +455,30 @@ inline cudaError_t qs_set_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+#define QS_LAUNCH_COOP_DYN QS_LAUNCH_DYN
+// A launch that may start while the launch before it on the stream runs
+// (programmatic stream serialization); the kernel waits with qs_grid_wait.
+template <typename... A, typename... B>
+inline void qs_launch_pdl(void (*kern)(A...), int grid, int block, size_t smem,
+                          cudaStream_t stream, B&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kern, std::forward<B>(args)...);
+}
+#define QS_LAUNCH_PDL(kern, grid, block, smem, stream, ...) \
+  qs_launch_pdl(kern, (grid), (block), (smem), (stream), __VA_ARGS__)
 #define QS_UNROLL _Pragma("unroll")
+// for the block-strided copy loops: unrolled, each would first divide by
+// the block size for its trip count
+#define QS_NO_UNROLL _Pragma("unroll 1")
 #endif
 
 #define QS_HD __device__ __forceinline__
@@ -506,6 +625,21 @@ QS_HD void set_vote(Row<P>& r, int i, int8_t v) {
   r.votes[i >> 2] = (r.votes[i >> 2] & ~(0xffu << sh)) | ((uint32_t)(uint8_t)v << sh);
 }
 
+// The row's (G,) fields.
+template <int P>
+QS_HD void load_scalars(Row<P>& r, const State& s, int g) {
+  r.node_state = s.node_state[g];
+  r.live = s.live[g];
+  r.term = s.term[g];
+  r.committed = s.committed[g];
+  r.last_index = s.last_index[g];
+  r.term_start = s.term_start[g];
+  r.quorum = s.quorum[g];
+  r.self_slot = s.self_slot[g];
+  r.election_tick = s.election_tick[g];
+  r.heartbeat_tick = s.heartbeat_tick[g];
+}
+
 template <int P>
 QS_HD void load_row(Row<P>& r, const State& s, int g) {
   r.np = P > 0 ? P : s.P;
@@ -522,16 +656,7 @@ QS_HD void load_row(Row<P>& r, const State& s, int g) {
     r.active |= (uint32_t)s.active[base + i] << i;
     set_vote(r, i, s.votes[base + i]);
   }
-  r.node_state = s.node_state[g];
-  r.live = s.live[g];
-  r.term = s.term[g];
-  r.committed = s.committed[g];
-  r.last_index = s.last_index[g];
-  r.term_start = s.term_start[g];
-  r.quorum = s.quorum[g];
-  r.self_slot = s.self_slot[g];
-  r.election_tick = s.election_tick[g];
-  r.heartbeat_tick = s.heartbeat_tick[g];
+  load_scalars(r, s, g);
 }
 
 // The hier geometry of the row (kernels.py _finish_step's has_hier
@@ -549,6 +674,20 @@ QS_HD void load_hier(Row<P>& r, const State& s, int g) {
 // Writes back the fields a launch may change.  ``votes`` only when the
 // launch merged votes or recycled rows; the group identity scalars only
 // when it recycled rows.
+template <int P, bool CHURN>
+QS_HD void store_scalars(const Row<P>& r, const State& s, int g) {
+  if (CHURN) {
+    s.node_state[g] = r.node_state;
+    s.live[g] = r.live;
+    s.term[g] = r.term;
+    s.term_start[g] = r.term_start;
+  }
+  s.committed[g] = r.committed;
+  s.last_index[g] = r.last_index;
+  s.election_tick[g] = r.election_tick;
+  s.heartbeat_tick[g] = r.heartbeat_tick;
+}
+
 template <int P, bool VOTES, bool CHURN>
 QS_HD void store_row(const Row<P>& r, const State& s, int g) {
   const int p = width(r);
@@ -560,16 +699,7 @@ QS_HD void store_row(const Row<P>& r, const State& s, int g) {
     s.active[base + i] = bit(r.active, i);
     if (VOTES || CHURN) s.votes[base + i] = vote(r, i);
   }
-  if (CHURN) {
-    s.node_state[g] = r.node_state;
-    s.live[g] = r.live;
-    s.term[g] = r.term;
-    s.term_start[g] = r.term_start;
-  }
-  s.committed[g] = r.committed;
-  s.last_index[g] = r.last_index;
-  s.election_tick[g] = r.election_tick;
-  s.heartbeat_tick[g] = r.heartbeat_tick;
+  store_scalars<P, CHURN>(r, s, g);
 }
 
 // Knuth's optimal compare-exchange networks (kernels.py _SORT_NETWORKS):
@@ -668,23 +798,57 @@ QS_HD int32_t self_column(const Row<P>& r) {
   return out;
 }
 
+// The (G,) settings a tick reads: read where the tick needs them
+// (TickAt), or loaded ahead into registers (TickIn: K1 and K2 issue them
+// before they wait for their slabs).
+struct TickAt {
+  const State& s;
+  int g;
+  QS_HD bool electable() const { return s.electable[g]; }
+  QS_HD bool check_quorum_on() const { return s.check_quorum_on[g]; }
+  QS_HD int32_t rand_timeout() const { return s.rand_timeout[g]; }
+  QS_HD int32_t election_timeout() const { return s.election_timeout[g]; }
+  QS_HD int32_t heartbeat_timeout() const { return s.heartbeat_timeout[g]; }
+};
+
+struct TickIn {
+  bool e, c;
+  int32_t rt, et, ht;
+  QS_HD bool electable() const { return e; }
+  QS_HD bool check_quorum_on() const { return c; }
+  QS_HD int32_t rand_timeout() const { return rt; }
+  QS_HD int32_t election_timeout() const { return et; }
+  QS_HD int32_t heartbeat_timeout() const { return ht; }
+};
+
+QS_HD TickIn load_tick(const State& s, int g) {
+  return TickIn{s.electable[g], s.check_quorum_on[g], s.rand_timeout[g],
+                s.election_timeout[g], s.heartbeat_timeout[g]};
+}
+
 // One tick (kernels.py tick_step + check_quorum's activity clearing).
-template <int P>
-QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
-                bool& hb_due, bool& checkq_demote) {
+template <int P, typename T>
+QS_HD void tick(Row<P>& r, const T& in, bool& elect_due, bool& hb_due,
+                bool& checkq_demote) {
   const bool is_leader = r.node_state == LEADER && r.live;
   int32_t et = r.live ? wadd(r.election_tick, 1) : r.election_tick;
-  elect_due = r.live && !is_leader && s.electable[g] && et >= s.rand_timeout[g];
-  const bool checkq_due = is_leader && et >= s.election_timeout[g];
+  elect_due = r.live && !is_leader && in.electable() && et >= in.rand_timeout();
+  const bool checkq_due = is_leader && et >= in.election_timeout();
   if (elect_due || checkq_due) et = 0;
-  const bool run_checkq = checkq_due && s.check_quorum_on[g];
+  const bool run_checkq = checkq_due && in.check_quorum_on();
   checkq_demote = run_checkq;
   if (run_checkq) r.active &= ~r.voting;
   int32_t ht = is_leader ? wadd(r.heartbeat_tick, 1) : r.heartbeat_tick;
-  hb_due = is_leader && ht >= s.heartbeat_timeout[g];
+  hb_due = is_leader && ht >= in.heartbeat_timeout();
   if (hb_due) ht = 0;
   r.election_tick = et;
   r.heartbeat_tick = ht;
+}
+
+template <int P>
+QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
+                bool& hb_due, bool& checkq_demote) {
+  tick(r, TickAt{s, g}, elect_due, hb_due, checkq_demote);
 }
 
 // The shared tail (kernels.py _finish_step): vote tally, won/lost on
@@ -718,16 +882,22 @@ QS_HD void commit_rule(Row<P>& r) {
   if (is_leader && q > r.committed && q >= r.term_start) r.committed = q;
 }
 
-template <int P, bool DO_TICK, bool HIER>
-QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
+template <int P, bool DO_TICK, bool HIER, typename T>
+QS_HD void finish(Row<P>& r, const T& in, bool& won, bool& lost,
                   bool& elect_due, bool& hb_due, bool& checkq_demote) {
   tally(r, won, lost);
   commit_rule<P, HIER>(r);
   if (DO_TICK) {
-    tick(r, s, g, elect_due, hb_due, checkq_demote);
+    tick(r, in, elect_due, hb_due, checkq_demote);
   } else {
     elect_due = hb_due = checkq_demote = false;
   }
+}
+
+template <int P, bool DO_TICK, bool HIER>
+QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
+                  bool& elect_due, bool& hb_due, bool& checkq_demote) {
+  finish<P, DO_TICK, HIER>(r, TickAt{s, g}, won, lost, elect_due, hb_due, checkq_demote);
 }
 
 // Dense ingest of one round (kernels.py quorum_step_dense_impl): ``ack``
@@ -923,42 +1093,443 @@ QS_HD void store_flags(const Flags& f, int g, bool won, bool lost, bool e,
   f.checkq_demote[g] = c;
 }
 
+// --- K1 and K2: a block's rows staged through shared memory ----------
+//
+// K1 and K2's row pass have one round of work a row and nothing to hide
+// memory latency behind, and one thread a row reading its row's P cells
+// of each (G, P) plane touches a new 128-byte line every few cells (int32
+// cells 4P bytes apart, bool and int8 cells P bytes apart).  So a block
+// of SLAB_BLOCK rows owns the contiguous slab of every plane it reads (B
+// x P cells; of the read plane's (G, S) and (G, S, P) planes, B x S and B
+// x S x P) and moves it whole: into its shared memory, where each thread
+// builds its Row and runs the unchanged row functions, then back, for
+// the planes the launch may change, after each thread has written its
+// changed fields into shared memory.  The (G,) fields and the five flag
+// rows are read and written one row a thread, coalesced as they are.
+//
+// A slab moves in one 1-D bulk copy of the TMA unit each way (one thread
+// issues it; the copy lands on an mbarrier that counts its bytes) where
+// its plane is 16-byte aligned (a view with an offset need not be: the
+// wrappers ask only for contiguity); what is left — the last, ragged
+// block's tail, which may end mid-vector, or the whole of a misaligned
+// plane — goes element by element, each thread a strided share, still
+// coalesced.  On the H100 the bulk copies beat 16-byte cp.async and
+// 16-byte vectors through registers, and 256 rows a block matched 128
+// (PERF.md §6).  In shared memory a slab keeps its plane's
+// row-major layout, each region 16-byte aligned, so a row of P int32
+// cells is 16-byte aligned where P is a multiple of 4 and 8-byte aligned
+// where it is even: a thread then reads and writes its row's cells as
+// 16- and 8-byte vectors, which keeps a warp's accesses off each other's
+// banks (scalar reads at a stride of P words would share banks 2- to
+// 8-way at even P); at odd P the stride itself keeps them apart.  A row's
+// P <= 8 byte cells are read as the two or three words that cover them
+// (row_bytes) and written a byte a thread.
+constexpr int SLAB_BLOCK = 256;
+constexpr int SLAB_SMEM_MAX = 232448;  // an SM's shared memory for a block
+
+// A plane's region: ``rows`` rows of ``row_bytes``, rounded up to 16 so
+// that the next region starts on a vector; -1 where the plane is off.
+QS_HHD int slab_take(int& at, bool on, int rows, int row_bytes) {
+  if (!on) return -1;
+  const int o = at;
+  at += (rows * row_bytes + 15) & ~15;
+  return o;
+}
+
+// K1's regions (byte offsets), the bulk copies' barrier last; the
+// launcher lays them out and passes them (a kernel parameter: no thread
+// computes them).  The read
+// egress takes the stage inputs' place: each thread writes its row's
+// done counts and indexes over its own stage row, which it has read.
+struct DenseSlab {
+  int match, next, ack, read_index, read_count, stage_idx, stage_cnt;
+  int voting, active, votes, touched, vote_new, near, read_acks, echo;
+  int bar, bytes;
+};
+
+QS_HHD DenseSlab dense_slab(int p, int S, int rows, bool votes, bool hier, bool reads) {
+  DenseSlab l;
+  int at = 0;
+  l.match = slab_take(at, true, rows, 4 * p);
+  l.next = slab_take(at, true, rows, 4 * p);
+  l.ack = slab_take(at, true, rows, 4 * p);
+  l.read_index = slab_take(at, reads, rows, 4 * S);
+  l.read_count = slab_take(at, reads, rows, 4 * S);
+  l.stage_idx = slab_take(at, reads, rows, 4 * S);
+  l.stage_cnt = slab_take(at, reads, rows, 4 * S);
+  l.voting = slab_take(at, true, rows, p);
+  l.active = slab_take(at, true, rows, p);
+  l.votes = slab_take(at, true, rows, p);
+  l.touched = slab_take(at, true, rows, p);
+  l.vote_new = slab_take(at, votes, rows, p);
+  l.near = slab_take(at, hier, rows, p);
+  l.read_acks = slab_take(at, reads, rows, S * p);
+  l.echo = slab_take(at, reads, rows, S * p);
+  l.bar = at;
+  l.bytes = at + 16;
+  return l;
+}
+
+// K2's row pass: the planes it reads, of which it changes next and
+// active (the event launch has written match, active and votes).
+struct SparseSlab {
+  int match, next, voting, active, votes, near, bar, bytes;
+};
+
+QS_HHD SparseSlab sparse_slab(int p, int rows, bool hier) {
+  SparseSlab l;
+  int at = 0;
+  l.match = slab_take(at, true, rows, 4 * p);
+  l.next = slab_take(at, true, rows, 4 * p);
+  l.voting = slab_take(at, true, rows, p);
+  l.active = slab_take(at, true, rows, p);
+  l.votes = slab_take(at, true, rows, p);
+  l.near = slab_take(at, hier, rows, p);
+  l.bar = at;
+  l.bytes = at + 16;
+  return l;
+}
+
+// The rows a block stages: SLAB_BLOCK, halved while the slabs would not
+// fit an SM's shared memory (wide generic rows with many read slots).
+template <typename F>
+inline int slab_rows(F bytes_at) {
+  int rows = SLAB_BLOCK;
+  while (rows > 32 && bytes_at(rows) > SLAB_SMEM_MAX) rows /= 2;
+  return rows;
+}
+
+// One block's copies between its shared memory ``m`` and the planes: the
+// bulk copies' barrier and the bytes it expects.
+struct SlabCopy {
+  uint8_t* m;
+  uint64_t* bar;
+  unsigned tx;
+};
+
+QS_HD void slab_begin(SlabCopy& c) {
+  c.tx = 0;
+  if (threadIdx.x == 0) qs_bar_init(c.bar);
+  __syncthreads();
+}
+
+// Starts the copy of rows [g0, g0 + n) of a plane of ``row_elems`` cells
+// of type T (uint8_t or uint32_t) a row into the region at ``off``.
+template <typename T>
+QS_HD void slab_in(SlabCopy& c, int off, const void* plane, int row_elems, int g0, int n) {
+  if (off < 0) return;
+  uint8_t* const dst = c.m + off;
+  const uint8_t* const src = (const uint8_t*)plane + (size_t)g0 * row_elems * sizeof(T);
+  const int bytes = n * row_elems * (int)sizeof(T);
+  const int t = threadIdx.x, B = blockDim.x;
+  int bulk = 0;  // the bytes the bulk copy moves
+  if (((uintptr_t)src & 15) == 0) {
+    bulk = bytes & ~15;
+    if (t == 0 && bulk > 0) qs_bulk_load(dst, src, (unsigned)bulk, c.bar);
+    c.tx += (unsigned)bulk;
+  }
+  QS_NO_UNROLL
+  for (int e = bulk / (int)sizeof(T) + t; e < bytes / (int)sizeof(T); e += B)
+    ((T*)dst)[e] = ((const T*)src)[e];
+}
+
+// Waits for the copies in; then any thread may read any row.
+QS_HD void slab_wait(SlabCopy& c) {
+  if (threadIdx.x == 0) qs_bar_expect(c.bar, c.tx);
+  qs_bar_wait(c.bar);
+  __syncthreads();
+}
+
+// After every thread has written its row back into shared memory.
+QS_HD void slab_out_begin() {
+  qs_bulk_store_fence();
+  __syncthreads();
+}
+
+// The region at ``off`` back to rows [g0, g0 + n) of the plane.
+template <typename T>
+QS_HD void slab_out(const SlabCopy& c, int off, void* plane, int row_elems, int g0, int n) {
+  if (off < 0) return;
+  const uint8_t* const src = c.m + off;
+  uint8_t* const dst = (uint8_t*)plane + (size_t)g0 * row_elems * sizeof(T);
+  const int bytes = n * row_elems * (int)sizeof(T);
+  const int t = threadIdx.x, B = blockDim.x;
+  int bulk = 0;
+  if (((uintptr_t)dst & 15) == 0) {
+    bulk = bytes & ~15;
+    if (t == 0 && bulk > 0) qs_bulk_store(dst, src, (unsigned)bulk);
+  }
+  QS_NO_UNROLL
+  for (int e = bulk / (int)sizeof(T) + t; e < bytes / (int)sizeof(T); e += B)
+    ((T*)dst)[e] = ((const T*)src)[e];
+}
+
+// The bulk stores must have read the block's shared memory before the
+// block ends.
+QS_HD void slab_out_end() {
+  if (threadIdx.x == 0) qs_bulk_store_wait();
+}
+
+// Row ``row``'s P int32 cells of a region, as 16- or 8-byte vectors where
+// the row is aligned to them (P a multiple of 4 or 2).
+template <int P>
+QS_HD void slab_get(int32_t* out, const uint8_t* region, int row, int p) {
+  const int32_t* w = (const int32_t*)region + (size_t)row * p;
+  if constexpr (P > 0 && P % 4 == 0) {
+    QS_UNROLL
+    for (int i = 0; i < P; i += 4) {
+      const uint4 v = *(const uint4*)(w + i);
+      out[i] = (int32_t)v.x;
+      out[i + 1] = (int32_t)v.y;
+      out[i + 2] = (int32_t)v.z;
+      out[i + 3] = (int32_t)v.w;
+    }
+  } else if constexpr (P > 0 && P % 2 == 0) {
+    QS_UNROLL
+    for (int i = 0; i < P; i += 2) {
+      const uint2 v = *(const uint2*)(w + i);
+      out[i] = (int32_t)v.x;
+      out[i + 1] = (int32_t)v.y;
+    }
+  } else {
+    QS_UNROLL
+    for (int i = 0; i < p; ++i) out[i] = w[i];
+  }
+}
+
+template <int P>
+QS_HD void slab_put(uint8_t* region, int row, int p, const int32_t* in) {
+  int32_t* w = (int32_t*)region + (size_t)row * p;
+  if constexpr (P > 0 && P % 4 == 0) {
+    QS_UNROLL
+    for (int i = 0; i < P; i += 4)
+      *(uint4*)(w + i) = uint4{(unsigned)in[i], (unsigned)in[i + 1], (unsigned)in[i + 2],
+                               (unsigned)in[i + 3]};
+  } else if constexpr (P > 0 && P % 2 == 0) {
+    QS_UNROLL
+    for (int i = 0; i < P; i += 2) *(uint2*)(w + i) = uint2{(unsigned)in[i], (unsigned)in[i + 1]};
+  } else {
+    QS_UNROLL
+    for (int i = 0; i < p; ++i) w[i] = in[i];
+  }
+}
+
+// Row ``row``'s P <= 8 byte cells of a region as the low bytes of one
+// 64-bit value (the cells above P zero), from the two or three aligned
+// words that cover them: a handful of instructions where a byte at a
+// time takes P loads and P inserts.  A read may reach past the region's
+// last row into the next region or the barrier after the last: the bytes
+// read there are masked off.
+template <int P>
+QS_HD uint64_t row_bytes(const uint8_t* region, int row) {
+  static_assert(P > 0 && P <= 8, "one 64-bit value holds 8 cells");
+  const int o = row * P;
+  const uint32_t* w = (const uint32_t*)region + (o >> 2);
+  const int sh = 8 * (o & 3);
+  uint64_t x = ((uint64_t)w[0] | ((uint64_t)w[1] << 32)) >> sh;
+  if (P > 5 && sh + 8 * P > 64) x |= (uint64_t)w[2] << (64 - sh);
+  return P == 8 ? x : x & ((1ull << (8 * P)) - 1);
+}
+
+// The mask of eight 0/1 bytes (bit j = byte j): the product puts byte j's
+// bit at bit 56 + j, each term at its own power of two, so nothing carries.
+QS_HD uint32_t byte_mask(uint64_t x) {
+  return (uint32_t)((x * 0x0102040810204080ull) >> 56);
+}
+
+// ``n`` bool cells as a mask (bit j = cell j), and back.
+QS_HD uint32_t get_bits(const uint8_t* b, int n) {
+  uint32_t m = 0;
+  QS_UNROLL
+  for (int j = 0; j < n; ++j) m |= (uint32_t)(b[j] != 0) << j;
+  return m;
+}
+
+QS_HD void put_bits(uint8_t* b, int n, uint32_t m) {
+  QS_UNROLL
+  for (int j = 0; j < n; ++j) b[j] = (m >> j) & 1u;
+}
+
+// A row's S read-slot words (index or count), as 16-byte vectors where S
+// is a multiple of 4 (the row then is 16-byte aligned), and back.
+QS_HD void get_slots(int32_t (&out)[QS_MAX_READ_SLOTS], const uint8_t* region, int row, int S) {
+  const int32_t* w = (const int32_t*)region + (size_t)row * S;
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; i += 4) {
+    if (i < S) {
+      if (S % 4 == 0) {
+        const uint4 v = *(const uint4*)(w + i);
+        out[i] = (int32_t)v.x;
+        out[i + 1] = (int32_t)v.y;
+        out[i + 2] = (int32_t)v.z;
+        out[i + 3] = (int32_t)v.w;
+      } else {
+        QS_UNROLL
+        for (int j = 0; j < 4; ++j)
+          if (i + j < S) out[i + j] = w[i + j];
+      }
+    }
+  }
+}
+
+QS_HD void put_slots(uint8_t* region, int row, int S, const int32_t (&in)[QS_MAX_READ_SLOTS]) {
+  int32_t* w = (int32_t*)region + (size_t)row * S;
+  QS_UNROLL
+  for (int i = 0; i < QS_MAX_READ_SLOTS; i += 4) {
+    if (i < S) {
+      if (S % 4 == 0) {
+        *(uint4*)(w + i) = uint4{(unsigned)in[i], (unsigned)in[i + 1], (unsigned)in[i + 2],
+                                 (unsigned)in[i + 3]};
+      } else {
+        QS_UNROLL
+        for (int j = 0; j < 4; ++j)
+          if (i + j < S) w[i + j] = in[i + j];
+      }
+    }
+  }
+}
+
+// The row's per-peer planes from the slab (match, next, voting, active,
+// votes).
+template <int P>
+QS_HD void row_from_slab(Row<P>& r, const uint8_t* m, int match, int next, int voting,
+                         int active, int votes, int row) {
+  const int p = width(r);
+  slab_get<P>(r.match, m + match, row, p);
+  slab_get<P>(r.next, m + next, row, p);
+  if constexpr (P > 0) {
+    // the votes are four int8 lanes a word, as the cells lie in memory
+    r.voting = byte_mask(row_bytes<P>(m + voting, row));
+    r.active = byte_mask(row_bytes<P>(m + active, row));
+    const uint64_t v = row_bytes<P>(m + votes, row);
+    r.votes[0] = (uint32_t)v;
+    if constexpr (P > 4) r.votes[1] = (uint32_t)(v >> 32);
+  } else {
+    r.voting = get_bits(m + voting + (size_t)row * p, p);
+    r.active = get_bits(m + active + (size_t)row * p, p);
+    for (int i = 0; i < (p + 3) / 4; ++i) r.votes[i] = 0;
+    const int8_t* v = (const int8_t*)(m + votes) + (size_t)row * p;
+    for (int i = 0; i < p; ++i) set_vote(r, i, v[i]);
+  }
+}
+
+// A row's near mask (HIER) from the slab.
+template <int P>
+QS_HD uint32_t near_from_slab(const uint8_t* region, int row, int p) {
+  if constexpr (P > 0) {
+    return byte_mask(row_bytes<P>(region, row));
+  } else {
+    return get_bits(region + (size_t)row * p, p);
+  }
+}
+
 // K1: quorum_step_dense, in place; the READS instances run the read
 // plane after the tail and the tick, as the reference does.
 template <int P, bool DO_TICK, bool VOTES, bool HIER, bool READS>
-__global__ void dense_kernel(State s, const int32_t* ack_max,
-                             const bool* touched, const int8_t* vote_new,
-                             bool track, Reads rd, Flags f) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= s.G) return;
-  Row<P> r;
-  load_row(r, s, g);
-  if (HIER) load_hier(r, s, g);
-  const size_t base = (size_t)g * width(r);
-  ingest_dense<P, VOTES, false>(r, ack_max + base, touched + base,
-                                VOTES ? vote_new + base : nullptr, track);
-  bool won, lost, e, h, c;
-  finish<P, DO_TICK, HIER>(r, s, g, won, lost, e, h, c);
-  store_row<P, VOTES, false>(r, s, g);
-  store_flags(f, g, won, lost, e, h, c);
+__global__ void __launch_bounds__(SLAB_BLOCK)
+    dense_kernel(State s, const int32_t* ack_max, const bool* touched,
+                 const int8_t* vote_new, bool track, Reads rd, Flags f, DenseSlab L) {
+  QS_DYN_SMEM(smem);
+  const int B = blockDim.x, t = threadIdx.x, g0 = blockIdx.x * B;
+  const int n = imin(B, s.G - g0);
+  const int p = P > 0 ? P : s.P;
+  const int S = READS ? rd.S : 0;
+  SlabCopy c{(uint8_t*)smem, (uint64_t*)((uint8_t*)smem + L.bar), 0};
+  slab_begin(c);
+  slab_in<uint32_t>(c, L.match, s.match, p, g0, n);
+  slab_in<uint32_t>(c, L.next, s.next, p, g0, n);
+  slab_in<uint32_t>(c, L.ack, ack_max, p, g0, n);
+  slab_in<uint8_t>(c, L.voting, s.voting, p, g0, n);
+  slab_in<uint8_t>(c, L.active, s.active, p, g0, n);
+  slab_in<uint8_t>(c, L.votes, s.votes, p, g0, n);
+  slab_in<uint8_t>(c, L.touched, touched, p, g0, n);
+  slab_in<uint8_t>(c, L.vote_new, vote_new, p, g0, n);
+  slab_in<uint8_t>(c, L.near, s.near, p, g0, n);
   if (READS) {
-    ReadRow rr;
-    ReadDone done;
-    load_reads(rr, r, rd, g);
-    init_done(done);
-    const size_t at = (size_t)g * rd.S;
-    read_plane(r, rr, rd.S, rd.stage_idx + at, rd.stage_cnt + at,
-               rd.echo + at * width(r), done);
-    store_reads(rr, r, rd, g);
-    store_done(done, rd, g);
+    slab_in<uint32_t>(c, L.read_index, rd.read_index, S, g0, n);
+    slab_in<uint32_t>(c, L.read_count, rd.read_count, S, g0, n);
+    slab_in<uint32_t>(c, L.stage_idx, rd.stage_idx, S, g0, n);
+    slab_in<uint32_t>(c, L.stage_cnt, rd.stage_cnt, S, g0, n);
+    slab_in<uint8_t>(c, L.read_acks, rd.read_acks, S * p, g0, n);
+    slab_in<uint8_t>(c, L.echo, rd.echo, S * p, g0, n);
   }
+  // the (G,) fields, coalesced, while the slabs come in
+  const int g = g0 + t;
+  Row<P> r;
+  r.np = p;
+  TickIn tin{};
+  if (t < n) {
+    load_scalars(r, s, g);
+    if (HIER) r.sub_quorum = s.sub_quorum[g];
+    if (DO_TICK) tin = load_tick(s, g);
+  }
+  slab_wait(c);
+  uint8_t* const m = c.m;
+  if (t < n) {
+    row_from_slab(r, m, L.match, L.next, L.voting, L.active, L.votes, t);
+    if (HIER) r.near = near_from_slab<P>(m + L.near, t, p);
+    int32_t ack[Row<P>::N];
+    slab_get<P>(ack, m + L.ack, t, p);
+    ingest_dense<P, VOTES, false>(
+        r, ack, (const bool*)(m + L.touched) + (size_t)t * p,
+        VOTES ? (const int8_t*)(m + L.vote_new) + (size_t)t * p : nullptr, track);
+    bool won, lost, e, h, cq;
+    finish<P, DO_TICK, HIER>(r, tin, won, lost, e, h, cq);
+    slab_put<P>(m + L.match, t, p, r.match);
+    slab_put<P>(m + L.next, t, p, r.next);
+    put_bits(m + L.active + (size_t)t * p, p, r.active);
+    if (VOTES) {
+      int8_t* v = (int8_t*)(m + L.votes) + (size_t)t * p;
+      QS_UNROLL
+      for (int i = 0; i < p; ++i) v[i] = vote(r, i);
+    }
+    store_scalars<P, false>(r, s, g);
+    store_flags(f, g, won, lost, e, h, cq);
+    if (READS) {
+      ReadRow rr;
+      ReadDone done;
+      clear_reads(rr);
+      get_slots(rr.index, m + L.read_index, t, S);
+      get_slots(rr.count, m + L.read_count, t, S);
+      const uint8_t* acks = m + L.read_acks + (size_t)t * S * p;
+      QS_UNROLL
+      for (int i = 0; i < QS_MAX_READ_SLOTS; ++i)
+        if (i < S) rr.acks[i] = get_bits(acks + i * p, p);
+      init_done(done);
+      read_plane(r, rr, S, (const int32_t*)(m + L.stage_idx) + (size_t)t * S,
+                 (const int32_t*)(m + L.stage_cnt) + (size_t)t * S,
+                 (const bool*)(m + L.echo) + (size_t)t * S * p, done);
+      put_slots(m + L.read_index, t, S, rr.index);
+      put_slots(m + L.read_count, t, S, rr.count);
+      uint8_t* out = m + L.read_acks + (size_t)t * S * p;
+      QS_UNROLL
+      for (int i = 0; i < QS_MAX_READ_SLOTS; ++i)
+        if (i < S) put_bits(out + i * p, p, rr.acks[i]);
+      put_slots(m + L.stage_idx, t, S, done.count);
+      put_slots(m + L.stage_cnt, t, S, done.index);
+    }
+  }
+  slab_out_begin();
+  slab_out<uint32_t>(c, L.match, s.match, p, g0, n);
+  slab_out<uint32_t>(c, L.next, s.next, p, g0, n);
+  slab_out<uint8_t>(c, L.active, s.active, p, g0, n);
+  if (VOTES) slab_out<uint8_t>(c, L.votes, s.votes, p, g0, n);
+  if (READS) {
+    slab_out<uint32_t>(c, L.read_index, rd.read_index, S, g0, n);
+    slab_out<uint32_t>(c, L.read_count, rd.read_count, S, g0, n);
+    slab_out<uint8_t>(c, L.read_acks, rd.read_acks, S * p, g0, n);
+    slab_out<uint32_t>(c, L.stage_idx, rd.done_count, S, g0, n);
+    slab_out<uint32_t>(c, L.stage_cnt, rd.done_index, S, g0, n);
+  }
+  slab_out_end();
 }
 
 // K2, first launch: the sparse events.  Acks scatter-max into match and
 // set the activity bit; any valid event marks its row contacted; votes
 // merge first-wins against the value before the batch (the batch holds
 // each (g, p) vote cell at most once).  Events outside [0, G) x [0, P)
-// are dropped.
+// are dropped.  Its blocks let the row launch start at once: that one
+// waits for this one's writes before it reads what they change.
 template <bool TRACK, bool VOTES>
 __global__ void sparse_events_kernel(State s, const int32_t* ack_g,
                                      const int32_t* ack_p,
@@ -969,6 +1540,7 @@ __global__ void sparse_events_kernel(State s, const int32_t* ack_g,
                                      const int8_t* vote_grant,
                                      const bool* vote_valid, int n_votes,
                                      bool* contacted) {
+  qs_grid_launch_dependents();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_acks && ack_valid[i]) {
     const int32_t g = ack_g[i], p = ack_p[i];
@@ -992,24 +1564,64 @@ __global__ void sparse_events_kernel(State s, const int32_t* ack_g,
 }
 
 // K2, second launch: the row pass after the events — next, the contact
-// reset, last_index, then the shared tail.
+// reset, last_index, then the shared tail.  It stages what the events
+// never write (next, voting, near, the (G,) fields) while they may still
+// run, then waits for them before it stages match, active and votes and
+// reads ``contacted``.  ``contacted`` is a scratch the wrapper keeps zeroed
+// (one a stream and width): the events set a row's byte, and this pass
+// puts every byte it finds set back to 0, so no launch clears it first.
+// The row pass changes only next and active of the planes (and the (G,)
+// fields): only those go back.
 template <int P, bool DO_TICK, bool TRACK, bool HIER>
-__global__ void sparse_rows_kernel(State s, const bool* contacted, Flags f) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= s.G) return;
+__global__ void __launch_bounds__(SLAB_BLOCK)
+    sparse_rows_kernel(State s, bool* contacted, Flags f, SparseSlab L) {
+  QS_DYN_SMEM(smem);
+  const int B = blockDim.x, t = threadIdx.x, g0 = blockIdx.x * B;
+  const int n = imin(B, s.G - g0);
+  const int p = P > 0 ? P : s.P;
+  const int g = g0 + t;
+  SlabCopy c{(uint8_t*)smem, (uint64_t*)((uint8_t*)smem + L.bar), 0};
+  slab_begin(c);
+  slab_in<uint32_t>(c, L.next, s.next, p, g0, n);
+  slab_in<uint8_t>(c, L.voting, s.voting, p, g0, n);
+  slab_in<uint8_t>(c, L.near, s.near, p, g0, n);
   Row<P> r;
-  load_row(r, s, g);
-  if (HIER) load_hier(r, s, g);
-  const int p = width(r);
-  QS_UNROLL
-  for (int i = 0; i < p; ++i) r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
-  if (TRACK && contacted[g] && r.node_state != LEADER && r.live)
-    r.election_tick = 0;
-  r.last_index = imax(r.last_index, self_column(r));
-  bool won, lost, e, h, c;
-  finish<P, DO_TICK, HIER>(r, s, g, won, lost, e, h, c);
-  store_row<P, false, false>(r, s, g);
-  store_flags(f, g, won, lost, e, h, c);
+  r.np = p;
+  TickIn tin{};
+  if (t < n) {
+    load_scalars(r, s, g);
+    if (HIER) r.sub_quorum = s.sub_quorum[g];
+    if (DO_TICK) tin = load_tick(s, g);
+  }
+  qs_grid_wait();
+  slab_in<uint32_t>(c, L.match, s.match, p, g0, n);
+  slab_in<uint8_t>(c, L.active, s.active, p, g0, n);
+  slab_in<uint8_t>(c, L.votes, s.votes, p, g0, n);
+  bool hit = false;
+  if (TRACK && t < n) {
+    hit = contacted[g];
+    if (hit) contacted[g] = false;
+  }
+  slab_wait(c);
+  uint8_t* const m = c.m;
+  if (t < n) {
+    row_from_slab(r, m, L.match, L.next, L.voting, L.active, L.votes, t);
+    if (HIER) r.near = near_from_slab<P>(m + L.near, t, p);
+    QS_UNROLL
+    for (int i = 0; i < p; ++i) r.next[i] = imax(r.next[i], wadd(r.match[i], 1));
+    if (TRACK && hit && r.node_state != LEADER && r.live) r.election_tick = 0;
+    r.last_index = imax(r.last_index, self_column(r));
+    bool won, lost, e, h, cq;
+    finish<P, DO_TICK, HIER>(r, tin, won, lost, e, h, cq);
+    slab_put<P>(m + L.next, t, p, r.next);
+    put_bits(m + L.active + (size_t)t * p, p, r.active);
+    store_scalars<P, false>(r, s, g);
+    store_flags(f, g, won, lost, e, h, cq);
+  }
+  slab_out_begin();
+  slab_out<uint32_t>(c, L.next, s.next, p, g0, n);
+  slab_out<uint8_t>(c, L.active, s.active, p, g0, n);
+  slab_out_end();
 }
 
 // K3 pre-pass: the (K, C) recycle records become a (K, G) map from row to

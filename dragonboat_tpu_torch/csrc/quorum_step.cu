@@ -5,7 +5,12 @@
 // instances of the row launch) and tick_step (:472).  The event launch does
 // the scatter-max of the acks with atomicMax on int32 match and plain
 // byte stores of ``true`` into active and the (G,) contacted scratch
-// (idempotent, so no atomics are needed); the row launch is K1's tail.
+// (idempotent, so no atomics are needed); the row launch is K1's tail,
+// on a block's rows staged through shared memory (see quorum.cuh).  Two
+// stream operations: the row launch may start while the events run
+// (programmatic dependent launch; it waits for them before it reads what
+// they write), and ``contacted`` is never cleared by a launch of its own
+// (the row pass leaves it zeroed for the next launch).
 // Bound: the row pass reads the state as K1 does (see quorum.cuh); the
 // events add 13 B each for acks and 10 B for votes; the writes are the
 // flags and the cells the events change (match, active, votes) and those
@@ -25,10 +30,6 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
   const bool track = flags & qs::F_TRACK_CONTACT;
   const bool votes = flags & qs::F_HAS_VOTES;
   if (st.G == 0) return 0;
-  if (track) {
-    const cudaError_t e = cudaMemsetAsync(contacted, 0, (size_t)st.G, cs);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int n_events = votes && n_votes > n_acks ? n_votes : n_acks;
   const int egrid = qs::grid_for(n_events);
   if (egrid > 0) {
@@ -44,19 +45,31 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
+  const bool hier = flags & qs::F_HAS_HIER;
+  const int block =
+      qs::slab_rows([&](int rows) { return qs::sparse_slab(st.P, rows, hier).bytes; });
+  const qs::SparseSlab lay = qs::sparse_slab(st.P, block, hier);
+  const size_t smem = lay.bytes;
+  const int grid = (int)(((long long)st.G + block - 1) / block);
+  int err = 0;
   qs::with_p(st.P, [&](auto pc) {
     qs::with_bool(flags & qs::F_DO_TICK, [&](auto tick) {
       qs::with_bool(track, [&](auto tc) {
-        qs::with_bool(flags & qs::F_HAS_HIER, [&](auto hier) {
+        qs::with_bool(hier, [&](auto hc) {
           auto kern = qs::sparse_rows_kernel<decltype(pc)::value,
                                              decltype(tick)::value,
                                              decltype(tc)::value,
-                                             decltype(hier)::value>;
-          QS_LAUNCH(kern, qs::grid_for(st.G), qs::BLOCK, cs, st, contacted,
-                    fl);
+                                             decltype(hc)::value>;
+          err = (int)qs_set_smem(kern, smem);
+          if (err != 0) return;
+          if (egrid > 0) {
+            QS_LAUNCH_PDL(kern, grid, block, smem, cs, st, contacted, fl, lay);
+          } else {
+            QS_LAUNCH_COOP_DYN(kern, grid, block, smem, cs, st, contacted, fl, lay);
+          }
         });
       });
     });
   });
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }

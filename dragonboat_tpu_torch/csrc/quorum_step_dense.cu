@@ -9,7 +9,9 @@
 // design: see quorum.cuh — one thread per group row, the row in
 // registers, one read of each state field it uses (124 B per row with
 // its inputs at P = 5, ticks on and votes off) and one write of each
-// field it may change.
+// field it may change; a block's rows of every per-peer plane staged
+// through shared memory, moved whole by the TMA unit's bulk copies
+// (dense_kernel).
 #include "launch.cuh"
 
 extern "C" int qs_dense(const qs::State* s, const int32_t* ack_max,

@@ -1222,14 +1222,30 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
         vote_g = vote_p = vote_grant = vote_valid = None
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
-    contacted = torch.empty((g,), dtype=BOOL, device=dev)
     _run("quorum_step", dev, lambda lib, stream: lib.qs_sparse(
         ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
         _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
-        _ptr(vote_valid), n_votes, _ptr(contacted), ctypes.byref(cfl),
+        _ptr(vote_valid), n_votes,
+        _ptr(_contact_scratch(dev, stream, g)) if track_contact else None,
+        ctypes.byref(cfl),
         _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
     ), _also(has_hier))
     return _outputs(st, buf)
+
+
+# K2's (G,) contacted scratch, one per (device, stream, G), zeroed once:
+# the event launch sets a row's byte and the row launch puts it back to 0,
+# so every launch with track_contact leaves it all zero and none clears
+# it first; a launch on another stream never shares it
+_CONTACTED: dict = {}
+
+
+def _contact_scratch(dev: torch.device, stream, g: int) -> torch.Tensor:
+    key = (str(dev), stream, g)
+    scratch = _CONTACTED.get(key)
+    if scratch is None:
+        scratch = _CONTACTED[key] = torch.zeros((g,), dtype=BOOL, device=dev)
+    return scratch
 
 
 def quorum_step_dense(

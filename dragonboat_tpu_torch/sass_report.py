@@ -36,7 +36,9 @@ from .ops import _build
 # hier, its READS instance as rung 4's mixed phase, its plain one as rung
 # 4's write window and the host loop, and with ticks; the device state
 # machine and its purge; the telemetry fold (``telem_kernel``; in trees
-# before it, ``telem_rows_kernel`` and ``telem_topk_kernel``)
+# before it, ``telem_rows_kernel`` and ``telem_topk_kernel``); K1 with
+# ticks and contact, plain, HIER and READS, and K2's two kernels as the
+# engine's single-round dispatches run them
 DEFAULT_MATCH = (
     "qs::multistep_kernel<3, true, false, false, true>",
     "qs::staged_kernel<",
@@ -50,13 +52,23 @@ DEFAULT_MATCH = (
     "qs::telem_kernel",
     "qs::telem_rows_kernel",
     "qs::telem_topk_kernel",
+    "qs::dense_kernel<5, true, false, false, false>",
+    "qs::dense_kernel<5, true, false, true, false>",
+    "qs::dense_kernel<5, true, false, false, true>",
+    "qs::sparse_rows_kernel<5, true, true, false>",
+    "qs::sparse_events_kernel<",
 )
 # the rows each kernel family runs at on its main path (rung 4 devsm's
 # 65,536 for the device state machine, rung 5's 100,000 for the fold)
 SHAPES = {"multistep_kernel": (131_072,), "staged_kernel": (131_072,),
           "multiround_kernel": (100_000,), "kv_plane_kernel": (65_536,),
           "kv_purge_kernel": (65_536,), "telem_kernel": (100_000,),
-          "telem_rows_kernel": (100_000,), "telem_topk_kernel": (256,)}
+          "telem_rows_kernel": (100_000,), "telem_topk_kernel": (256,),
+          "dense_kernel": (100_000,), "sparse_rows_kernel": (100_000,),
+          "sparse_events_kernel": (4_096,)}
+# the memory instructions counted over a whole kernel (K1 and K2 have no
+# round loop)
+MEMORY_OPS = ("LDG", "STG", "LDS", "STS", "LDGSTS", "UBLKCP", "SYNCS", "LDL", "STL")
 
 # compute capability 9.0: registers, warps and blocks an SM, and the
 # register file's allocation unit (registers a warp, rounded up to 256)
@@ -180,6 +192,10 @@ def block_of(name: str) -> int:
         return _const("STAGED_BLOCK", 256)
     if fam == "multiround_kernel":
         return _const("K3_BLOCK", 256)
+    if fam in ("dense_kernel", "sparse_rows_kernel"):
+        with open(os.path.join(_build.SRC_DIR, "quorum.cuh")) as f:
+            m = re.search(r"constexpr int SLAB_BLOCK = (\d+);", f.read())
+        return int(m.group(1)) if m else _const("BLOCK", 256)
     return _const("BLOCK", 256)
 
 
@@ -222,8 +238,9 @@ def main(argv=None) -> int:
         fam = re.search(r"qs::(\w+)[<(]", short + "(")
         fam = fam.group(1) if fam else ""
         rows = SHAPES.get(fam, (100_000,))[0] * lanes_a_row(fam)
-        if short.startswith("void qs::multiround_kernel") and short.endswith("true>"):
-            rows = 65_536  # the READS instance runs at rung 4's width
+        if (short.startswith("void qs::multiround_kernel")
+                or short.startswith("void qs::dense_kernel")) and short.endswith("true>"):
+            rows = 65_536  # the READS instances run at rung 4's width
         dyn = _dyn_smem(short)
         line = {"instance": short, "block": block, **info, "dyn_smem": dyn}
         if "registers" in info:
@@ -233,7 +250,9 @@ def main(argv=None) -> int:
                         waves=round(grid / (bps * SMS), 3) if bps else None)
         insns = sass.get(mangled)
         if insns:
-            line.update(sass_instructions=len(insns), loops=loops(insns)[:4])
+            ops = [opcode(t).split(".")[0] for _, t in insns]
+            line.update(sass_instructions=len(insns), loops=loops(insns)[:4],
+                        memory_ops={o: ops.count(o) for o in MEMORY_OPS})
             fname = re.sub(r"[^\w]+", "_", short)[:120] + ".sass"
             with open(os.path.join(args.out, fname), "w") as f:
                 f.write("\n".join(f"/*{a:04x}*/ {t}" for a, t in insns) + "\n")
@@ -244,8 +263,11 @@ def main(argv=None) -> int:
 def _dyn_smem(short: str) -> int:
     """Dynamic shared memory a block of ``short`` asks for at the main
     path's shape (S = 4 read slots): K3's ring of round inputs, by the
-    layout of ``csrc/quorum.cuh`` (``k3_layout``), in a tree that has it;
-    0 elsewhere."""
+    layout of ``csrc/quorum.cuh`` (``k3_layout``), and K1's and K2's row
+    slabs (``slab_layout``), in a tree that has them; 0 elsewhere."""
+    slab = _slab_smem(short)
+    if slab is not None:
+        return slab
     m = re.search(r"qs::multiround_kernel<(\d+), (\w+), (\w+), (\w+), (\w+), (\w+)>", short)
     with open(os.path.join(_build.SRC_DIR, "quorum.cuh")) as f:
         slots = re.search(r"constexpr int K3_SLOTS = K3_AHEAD \+ (\d+);", f.read())
@@ -258,6 +280,28 @@ def _dyn_smem(short: str) -> int:
     cover = lambda n: (n + 6) // 4  # noqa: E731
     words = p + churn + (cover(p) if votes else 0) + (2 * s + cover(s * p) if reads else 0)
     return (ahead + int(slots.group(1))) * words * _const("K3_BLOCK", 256) * 4
+
+
+def _slab_smem(short: str):
+    """The bytes of K1's or K2's row slabs at P = 5, S = 4, or None for
+    another kernel or a tree without them: each plane a block stages, its
+    rows' bytes rounded up to 16, and the bulk copies' barrier (as
+    ``dense_slab`` and ``sparse_slab`` in ``csrc/quorum.cuh`` lay them
+    out)."""
+    with open(os.path.join(_build.SRC_DIR, "quorum.cuh")) as f:
+        m = re.search(r"constexpr int SLAB_BLOCK = (\d+);", f.read())
+    dense = re.search(r"qs::dense_kernel<(\d+), (\w+), (\w+), (\w+), (\w+)>", short)
+    sparse = re.search(r"qs::sparse_rows_kernel<(\d+), (\w+), (\w+), (\w+)>", short)
+    if not m or not (dense or sparse):
+        return None
+    rows, p, s = int(m.group(1)), 5, 4
+    if dense:
+        votes, hier, reads = (dense.group(i) == "true" for i in (3, 4, 5))
+        planes = [4 * p] * 3 + [4 * s] * 4 * reads + [p] * (4 + votes + hier) + [s * p] * 2 * reads
+    else:
+        hier = sparse.group(4) == "true"
+        planes = [4 * p] * 2 + [p] * (3 + hier)
+    return sum(-(-rows * b // 16) * 16 for b in planes) + 16
 
 
 if __name__ == "__main__":
