@@ -25,9 +25,8 @@ int launch_dense(const State& st, const int32_t* ack_max, const bool* touched,
   const bool votes = flags & F_HAS_VOTES, hier = flags & F_HAS_HIER;
   const int S = READS ? rd.S : 0;
   // the row slabs in shared memory (see dense_kernel)
-  const int block = slab_rows(
-      [&](int rows) { return dense_slab(st.P, S, rows, votes, hier, READS).bytes; });
-  const DenseSlab lay = dense_slab(st.P, S, block, votes, hier, READS);
+  int block = 0;
+  const DenseSlab lay = dense_layout(st.P, S, votes, hier, READS, block);
   const size_t smem = lay.bytes;
   const int grid = (int)(((long long)st.G + block - 1) / block);
   int err = 0;

@@ -845,12 +845,6 @@ QS_HD void tick(Row<P>& r, const T& in, bool& elect_due, bool& hb_due,
   r.heartbeat_tick = ht;
 }
 
-template <int P>
-QS_HD void tick(Row<P>& r, const State& s, int g, bool& elect_due,
-                bool& hb_due, bool& checkq_demote) {
-  tick(r, TickAt{s, g}, elect_due, hb_due, checkq_demote);
-}
-
 // The shared tail (kernels.py _finish_step): vote tally, won/lost on
 // live candidates, the guarded commit, then the tick.  HIER adds the
 // sub-quorum rule (has_hier, :640-650): where sub_quorum > 0 the commit
@@ -892,12 +886,6 @@ QS_HD void finish(Row<P>& r, const T& in, bool& won, bool& lost,
   } else {
     elect_due = hb_due = checkq_demote = false;
   }
-}
-
-template <int P, bool DO_TICK, bool HIER>
-QS_HD void finish(Row<P>& r, const State& s, int g, bool& won, bool& lost,
-                  bool& elect_due, bool& hb_due, bool& checkq_demote) {
-  finish<P, DO_TICK, HIER>(r, TickAt{s, g}, won, lost, elect_due, hb_due, checkq_demote);
 }
 
 // Dense ingest of one round (kernels.py quorum_step_dense_impl): ``ack``
@@ -1141,11 +1129,23 @@ QS_HHD int slab_take(int& at, bool on, int rows, int row_bytes) {
 // computes them).  The read
 // egress takes the stage inputs' place: each thread writes its row's
 // done counts and indexes over its own stage row, which it has read.
+// ``end`` is where the planes' regions end; the barrier sits 16 bytes
+// past it (slab_end), out of reach of row_bytes' reads.
 struct DenseSlab {
   int match, next, ack, read_index, read_count, stage_idx, stage_cnt;
   int voting, active, votes, touched, vote_new, near, read_acks, echo;
-  int bar, bytes;
+  int end, bar, bytes;
 };
+
+// After the last region: 16 bytes that a row read of the last region's
+// byte cells may reach into (row_bytes reads up to 7 bytes past a row),
+// then the barrier, which only mbarrier instructions touch.
+template <typename L>
+QS_HHD void slab_end(L& l, int at) {
+  l.end = at;
+  l.bar = at + 16;
+  l.bytes = at + 32;
+}
 
 QS_HHD DenseSlab dense_slab(int p, int S, int rows, bool votes, bool hier, bool reads) {
   DenseSlab l;
@@ -1165,15 +1165,14 @@ QS_HHD DenseSlab dense_slab(int p, int S, int rows, bool votes, bool hier, bool 
   l.near = slab_take(at, hier, rows, p);
   l.read_acks = slab_take(at, reads, rows, S * p);
   l.echo = slab_take(at, reads, rows, S * p);
-  l.bar = at;
-  l.bytes = at + 16;
+  slab_end(l, at);
   return l;
 }
 
 // K2's row pass: the planes it reads, of which it changes next and
 // active (the event launch has written match, active and votes).
 struct SparseSlab {
-  int match, next, voting, active, votes, near, bar, bytes;
+  int match, next, voting, active, votes, near, end, bar, bytes;
 };
 
 QS_HHD SparseSlab sparse_slab(int p, int rows, bool hier) {
@@ -1185,8 +1184,7 @@ QS_HHD SparseSlab sparse_slab(int p, int rows, bool hier) {
   l.active = slab_take(at, true, rows, p);
   l.votes = slab_take(at, true, rows, p);
   l.near = slab_take(at, hier, rows, p);
-  l.bar = at;
-  l.bytes = at + 16;
+  slab_end(l, at);
   return l;
 }
 
@@ -1197,6 +1195,19 @@ inline int slab_rows(F bytes_at) {
   int rows = SLAB_BLOCK;
   while (rows > 32 && bytes_at(rows) > SLAB_SMEM_MAX) rows /= 2;
   return rows;
+}
+
+// A launch's layout and the rows a block stages (``rows``), for K1 and for
+// K2's row pass: the launchers and qs_slab_layout (quorum_step.cu) call
+// these and nothing else.
+inline DenseSlab dense_layout(int p, int S, bool votes, bool hier, bool reads, int& rows) {
+  rows = slab_rows([&](int n) { return dense_slab(p, S, n, votes, hier, reads).bytes; });
+  return dense_slab(p, S, rows, votes, hier, reads);
+}
+
+inline SparseSlab sparse_layout(int p, bool hier, int& rows) {
+  rows = slab_rows([&](int n) { return sparse_slab(p, n, hier).bytes; });
+  return sparse_slab(p, rows, hier);
 }
 
 // One block's copies between its shared memory ``m`` and the planes: the
@@ -1317,9 +1328,9 @@ QS_HD void slab_put(uint8_t* region, int row, int p, const int32_t* in) {
 // Row ``row``'s P <= 8 byte cells of a region as the low bytes of one
 // 64-bit value (the cells above P zero), from the two or three aligned
 // words that cover them: a handful of instructions where a byte at a
-// time takes P loads and P inserts.  A read may reach past the region's
-// last row into the next region or the barrier after the last: the bytes
-// read there are masked off.
+// time takes P loads and P inserts.  A read may reach up to 7 bytes past
+// the region's last row, into the next region or the 16 bytes before the
+// barrier (slab_end): the bytes read there are masked off.
 template <int P>
 QS_HD uint64_t row_bytes(const uint8_t* region, int row) {
   static_assert(P > 0 && P <= 8, "one 64-bit value holds 8 cells");
@@ -1840,7 +1851,7 @@ __global__ void __launch_bounds__(K3_BLOCK, READS ? 4 : 6)
     }
     if (DO_TICK && tick_mask[k]) {
       bool e0, h0, c0;
-      tick(r, s, g, e0, h0, c0);
+      tick(r, TickAt{s, g}, e0, h0, c0);
       e = e || e0;
       h = h || h0;
       c = c || c0;
@@ -1952,7 +1963,7 @@ __global__ void multistep_kernel(State s, const int32_t* ack,
       }
     }
     bool w, l, e0, h0, c0;
-    finish<P, DO_TICK, HIER>(r, s, g, w, l, e0, h0, c0);
+    finish<P, DO_TICK, HIER>(r, TickAt{s, g}, w, l, e0, h0, c0);
     won = won || w;
     lost = lost || l;
     e = e || e0;

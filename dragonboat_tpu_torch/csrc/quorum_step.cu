@@ -32,7 +32,14 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
   if (st.G == 0) return 0;
   const int n_events = votes && n_votes > n_acks ? n_votes : n_acks;
   const int egrid = qs::grid_for(n_events);
-  if (egrid > 0) {
+  const bool hier = flags & qs::F_HAS_HIER;
+  int block = 0;
+  const qs::SparseSlab lay = qs::sparse_layout(st.P, hier, block);
+  const size_t smem = lay.bytes;
+  const int grid = (int)(((long long)st.G + block - 1) / block);
+  // the event launch sets bytes of ``contacted`` that only the row launch
+  // puts back to 0: nothing that can fail comes between the two
+  auto events = [&]() -> int {
     qs::with_bool(track, [&](auto tc) {
       qs::with_bool(votes, [&](auto vc) {
         auto kern = qs::sparse_events_kernel<decltype(tc)::value,
@@ -42,15 +49,8 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
                   n_votes, contacted);
       });
     });
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  const bool hier = flags & qs::F_HAS_HIER;
-  const int block =
-      qs::slab_rows([&](int rows) { return qs::sparse_slab(st.P, rows, hier).bytes; });
-  const qs::SparseSlab lay = qs::sparse_slab(st.P, block, hier);
-  const size_t smem = lay.bytes;
-  const int grid = (int)(((long long)st.G + block - 1) / block);
+    return (int)cudaGetLastError();
+  };
   int err = 0;
   qs::with_p(st.P, [&](auto pc) {
     qs::with_bool(flags & qs::F_DO_TICK, [&](auto tick) {
@@ -63,6 +63,8 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
           err = (int)qs_set_smem(kern, smem);
           if (err != 0) return;
           if (egrid > 0) {
+            err = events();
+            if (err != 0) return;
             QS_LAUNCH_PDL(kern, grid, block, smem, cs, st, contacted, fl, lay);
           } else {
             QS_LAUNCH_COOP_DYN(kern, grid, block, smem, cs, st, contacted, fl, lay);
@@ -72,4 +74,24 @@ extern "C" int qs_sparse(const qs::State* s, const int32_t* ack_g,
     });
   });
   return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// K1's (``dense`` != 0) or K2's row-pass slab layout at ``p`` peer slots
+// and ``S`` read slots under the launch ``flags`` (F_HAS_VOTES,
+// F_HAS_HIER, F_HAS_READS), as the launchers lay it out: returns the rows
+// a block stages and puts in out[0..2] the end of the planes' regions,
+// the barrier's offset and the shared memory a block takes.  No launch
+// calls it; the compiler and timing reports and the tests read it.
+extern "C" int qs_slab_layout(int dense, int p, int S, int flags, int* out) {
+  const bool hier = flags & qs::F_HAS_HIER;
+  int rows = 0;
+  if (dense) {
+    const qs::DenseSlab l = qs::dense_layout(p, S, flags & qs::F_HAS_VOTES, hier,
+                                             flags & qs::F_HAS_READS, rows);
+    out[0] = l.end, out[1] = l.bar, out[2] = l.bytes;
+  } else {
+    const qs::SparseSlab l = qs::sparse_layout(p, hier, rows);
+    out[0] = l.end, out[1] = l.bar, out[2] = l.bytes;
+  }
+  return rows;
 }

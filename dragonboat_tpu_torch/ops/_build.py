@@ -131,6 +131,8 @@ _SIGNATURES = {
     # qs_staged_multistep(state, base_index, n_rounds, flags_out, flags,
     #                     stream)
     "qs_staged_multistep": [_VP, _INT, _INT, _VP, _INT, _VP],
+    # qs_slab_layout(dense, p, S, flags, out[3]) -> rows a block
+    "qs_slab_layout": [_INT, _INT, _INT, _INT, _VP],
 }
 
 

@@ -1222,14 +1222,26 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
         vote_g = vote_p = vote_grant = vote_valid = None
     buf = _flag_buffer(g, dev)
     cfl = _cflags(buf)
-    _run("quorum_step", dev, lambda lib, stream: lib.qs_sparse(
-        ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
-        _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
-        _ptr(vote_valid), n_votes,
-        _ptr(_contact_scratch(dev, stream, g)) if track_contact else None,
-        ctypes.byref(cfl),
-        _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream,
-    ), _also(has_hier))
+    keys = []
+
+    def call(lib, stream):
+        contacted = None
+        if track_contact:
+            keys.append((str(dev), stream, g))
+            contacted = _contact_scratch(*keys[-1])
+        return lib.qs_sparse(
+            ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
+            _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
+            _ptr(vote_valid), n_votes, _ptr(contacted), ctypes.byref(cfl),
+            _bits(do_tick, track_contact, has_votes, has_hier=has_hier), stream)
+
+    try:
+        _run("quorum_step", dev, call, _also(has_hier))
+    except RuntimeError:
+        # the event launch may have set bytes that no row launch put back
+        for key in keys:
+            _CONTACTED.pop(key, None)
+        raise
     return _outputs(st, buf)
 
 
@@ -1240,8 +1252,8 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
 _CONTACTED: dict = {}
 
 
-def _contact_scratch(dev: torch.device, stream, g: int) -> torch.Tensor:
-    key = (str(dev), stream, g)
+def _contact_scratch(dev: str, stream, g: int) -> torch.Tensor:
+    key = (dev, stream, g)
     scratch = _CONTACTED.get(key)
     if scratch is None:
         scratch = _CONTACTED[key] = torch.zeros((g,), dtype=BOOL, device=dev)

@@ -21,6 +21,7 @@ in the build directory).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -29,6 +30,7 @@ import subprocess
 import sys
 
 from .ops import _build
+from .ops import kernels as tk
 
 # the instances the main paths run: the staged row loop at every width
 # (``staged_kernel``; in trees before it, the STAGED instance of
@@ -192,10 +194,6 @@ def block_of(name: str) -> int:
         return _const("STAGED_BLOCK", 256)
     if fam == "multiround_kernel":
         return _const("K3_BLOCK", 256)
-    if fam in ("dense_kernel", "sparse_rows_kernel"):
-        with open(os.path.join(_build.SRC_DIR, "quorum.cuh")) as f:
-            m = re.search(r"constexpr int SLAB_BLOCK = (\d+);", f.read())
-        return int(m.group(1)) if m else _const("BLOCK", 256)
     return _const("BLOCK", 256)
 
 
@@ -228,20 +226,22 @@ def main(argv=None) -> int:
     else:
         print(json.dumps({"cuobjdump": "not found"}), flush=True)
     names = demangle(sorted(set(entries) | set(sass)))
+    lib = _build.bind(path)
     os.makedirs(args.out, exist_ok=True)
     for mangled, pretty in sorted(names.items(), key=lambda kv: kv[1]):
         if not any(m in pretty for m in args.match):
             continue
         info = entries.get(mangled, {})
         short = pretty.split("(")[0]
-        block = block_of(short)
+        slab = _slab(lib, short)
+        block = slab[0] if slab else block_of(short)
         fam = re.search(r"qs::(\w+)[<(]", short + "(")
         fam = fam.group(1) if fam else ""
         rows = SHAPES.get(fam, (100_000,))[0] * lanes_a_row(fam)
         if (short.startswith("void qs::multiround_kernel")
                 or short.startswith("void qs::dense_kernel")) and short.endswith("true>"):
             rows = 65_536  # the READS instances run at rung 4's width
-        dyn = _dyn_smem(short)
+        dyn = slab[1] if slab else _dyn_smem(short)
         line = {"instance": short, "block": block, **info, "dyn_smem": dyn}
         if "registers" in info:
             bps = blocks_per_sm(info["registers"], block, info.get("smem", 0) + dyn)
@@ -263,11 +263,8 @@ def main(argv=None) -> int:
 def _dyn_smem(short: str) -> int:
     """Dynamic shared memory a block of ``short`` asks for at the main
     path's shape (S = 4 read slots): K3's ring of round inputs, by the
-    layout of ``csrc/quorum.cuh`` (``k3_layout``), and K1's and K2's row
-    slabs (``slab_layout``), in a tree that has them; 0 elsewhere."""
-    slab = _slab_smem(short)
-    if slab is not None:
-        return slab
+    layout of ``csrc/quorum.cuh`` (``k3_layout``), in a tree that has it;
+    0 elsewhere."""
     m = re.search(r"qs::multiround_kernel<(\d+), (\w+), (\w+), (\w+), (\w+), (\w+)>", short)
     with open(os.path.join(_build.SRC_DIR, "quorum.cuh")) as f:
         slots = re.search(r"constexpr int K3_SLOTS = K3_AHEAD \+ (\d+);", f.read())
@@ -282,26 +279,22 @@ def _dyn_smem(short: str) -> int:
     return (ahead + int(slots.group(1))) * words * _const("K3_BLOCK", 256) * 4
 
 
-def _slab_smem(short: str):
-    """The bytes of K1's or K2's row slabs at P = 5, S = 4, or None for
-    another kernel or a tree without them: each plane a block stages, its
-    rows' bytes rounded up to 16, and the bulk copies' barrier (as
-    ``dense_slab`` and ``sparse_slab`` in ``csrc/quorum.cuh`` lay them
-    out)."""
-    with open(os.path.join(_build.SRC_DIR, "quorum.cuh")) as f:
-        m = re.search(r"constexpr int SLAB_BLOCK = (\d+);", f.read())
-    dense = re.search(r"qs::dense_kernel<(\d+), (\w+), (\w+), (\w+), (\w+)>", short)
-    sparse = re.search(r"qs::sparse_rows_kernel<(\d+), (\w+), (\w+), (\w+)>", short)
-    if not m or not (dense or sparse):
+def _slab(lib, short: str):
+    """K1's or K2's row pass at P = 5, S = 4: the rows a block stages and
+    the shared memory its slabs take, as the launcher lays them out
+    (``qs_slab_layout``); None for another kernel or a tree without it."""
+    dense = re.search(r"qs::dense_kernel<\d+, \w+, (\w+), (\w+), (\w+)>", short)
+    sparse = re.search(r"qs::sparse_rows_kernel<\d+, \w+, \w+, (\w+)>", short)
+    if not (dense or sparse) or not hasattr(lib, "qs_slab_layout"):
         return None
-    rows, p, s = int(m.group(1)), 5, 4
+    on = [g == "true" for g in (dense or sparse).groups()]
     if dense:
-        votes, hier, reads = (dense.group(i) == "true" for i in (3, 4, 5))
-        planes = [4 * p] * 3 + [4 * s] * 4 * reads + [p] * (4 + votes + hier) + [s * p] * 2 * reads
+        flags = tk._bits(False, False, on[0], has_hier=on[1], has_reads=on[2])
     else:
-        hier = sparse.group(4) == "true"
-        planes = [4 * p] * 2 + [p] * (3 + hier)
-    return sum(-(-rows * b // 16) * 16 for b in planes) + 16
+        flags = tk._bits(False, False, False, has_hier=on[0])
+    out = (ctypes.c_int * 3)()
+    rows = lib.qs_slab_layout(1 if dense else 0, 5, 4, flags, out)
+    return rows, out[2]
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ and the single-round step kernels K1 and K2 at their main paths' shapes,
 for timing edited trees in turns.
 
     python3 -m dragonboat_tpu_torch.time_kv_fold [--tag NAME]
-        [--kernels-only | --steps-only] [--define NAME=VALUE ...]
+        [--kernels-only | --steps-only]
 
 Run from the root of a checkout (it uses ``chip_smoke.py``'s input and
 timing helpers); needs one CUDA card.  It prints one JSON line:
@@ -28,12 +28,13 @@ timed twice: on a state restored just before the launch (it then sits in
 the 50 MB L2 cache, as on the engine's paths) and with a 256 MB write
 between the restore and the launch, which evicts it from L2.  Without
 either switch the whole library is built and everything is timed.
-``--define NAME=VALUE`` passes ``-DNAME=VALUE`` to ``nvcc``, for timing
-a source's compile-time variants side by side.
+A variant is timed as an edited tree of its own, each run with its
+``--tag``.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import sys
@@ -72,21 +73,16 @@ def _steps_only(build) -> None:
                      "quorum_step.cu", empty)
     build.COMPILE_FLAGS = build.COMPILE_FLAGS + ["-I", build.SRC_DIR]
     build._SIGNATURES = {name: sig for name, sig in build._SIGNATURES.items()
-                         if name in ("qs_dense", "qs_sparse")}
+                         if name in ("qs_dense", "qs_sparse", "qs_slab_layout")}
 
 
-def _rows_a_block(build) -> int:
-    """Rows a block of K1 and K2's row pass: ``SLAB_BLOCK`` where
-    ``csrc/quorum.cuh`` has it, else ``BLOCK`` (one row a thread)."""
-    import re
-
-    with open(os.path.join(build.SRC_DIR, "quorum.cuh")) as f:
-        src = f.read()
-    for name in ("SLAB_BLOCK", "BLOCK"):
-        m = re.search(rf"constexpr int {name} = (\d+);", src)
-        if m:
-            return int(m.group(1))
-    return 256
+def _rows_a_block(lib) -> int:
+    """Rows a block of K1 at 100,000 x 5 as its launcher lays it out
+    (``qs_slab_layout``); in a tree without it, 256 (one row a thread in
+    blocks of ``BLOCK``)."""
+    if not hasattr(lib, "qs_slab_layout"):
+        return 256
+    return lib.qs_slab_layout(1, 5, 0, 0, (ctypes.c_int * 3)())
 
 
 # K1 and K2 as the main paths run them, and K1's READS instance as the
@@ -149,8 +145,6 @@ def time_step(torch, cs, tk, ts, dev, name, flags, g, s, flush) -> dict:
 def time_empty(torch, cs, lib, dev, grid, block) -> float:
     """An empty kernel's device time on ``grid`` blocks of ``block``
     threads."""
-    import ctypes
-
     lib.qs_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.qs_empty.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -168,11 +162,11 @@ def time_steps(torch, cs, tk, ts, build, dev, empty: bool) -> dict:
     out = {"steps": [time_step(torch, cs, tk, ts, dev, name, flags, g, s, flush)
                      for name, flags, g, s in STEP_CASES]}
     if empty:
-        rows = _rows_a_block(build)
+        lib = build.library()
+        rows = _rows_a_block(lib)
         out["rows_a_block"] = rows
-        out["empty_ms"] = {
-            str(g): time_empty(torch, cs, build.library(), dev, -(-g // rows), rows)
-            for g in (100_000, 65_536)}
+        out["empty_ms"] = {str(g): time_empty(torch, cs, lib, dev, -(-g // rows), rows)
+                           for g in (100_000, 65_536)}
     return out
 
 
@@ -237,7 +231,6 @@ def main(argv=None) -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--kernels-only", action="store_true")
     only.add_argument("--steps-only", action="store_true")
-    ap.add_argument("--define", action="append", default=[], metavar="NAME=VALUE")
     args = ap.parse_args(argv)
     import torch
 
@@ -255,11 +248,10 @@ def main(argv=None) -> int:
         _kernels_only(_build)
     elif args.steps_only:
         _steps_only(_build)
-    _build.COMPILE_FLAGS = _build.COMPILE_FLAGS + [f"-D{d}" for d in args.define]
     dev = torch.device("cuda", 0)
     _build.library()
     cs.int32_peak(torch)
-    out = {"tag": args.tag, "defines": args.define,
+    out = {"tag": args.tag,
            "build_s": _build.build_info.get("seconds"),
            "source_s": {os.path.basename(k): v for k, v in
                         (_build.build_info.get("source_seconds") or {}).items()}}

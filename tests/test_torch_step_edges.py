@@ -15,10 +15,12 @@ functions (run op by op, without ``jit``: many shapes, no compiles).
 The tolerance is zero: all of this is integer and boolean work.  Planes
 passed as views that start off a 16-byte boundary take the element path
 everywhere.  K2's ``contacted`` scratch, which no launch clears, must be
-all zero after every launch that tracks contact.
+all zero after every launch that tracks contact, and is dropped after a
+launch that fails.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import shutil
 import subprocess
@@ -332,3 +334,68 @@ def test_steps_on_offset_views(launch, g, p, kernel):
     assert kout.state.match.data_ptr() % 16 != 0
     _same(kout, plain, ("plain", g, p, kernel))
     _same(kout, jx, ("jax", g, p, kernel))
+
+
+# ----------------------------------------------------------------------
+# K2's scratch after a failed launch, and the slabs' barrier
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", G_EDGES)
+def test_sparse_step_failed_launch_drops_scratch(emulated, monkeypatch, g):
+    """A K2 launch that fails after its event launch may leave bytes of
+    the contacted scratch set: the wrapper drops that scratch, and the
+    next launch starts from a zeroed one."""
+    p, seed = 5, 5_000 * g
+    f = _fields(seed, g, p)
+    acks, votes = _sparse_inputs(seed, g, p)
+    args = [torch.from_numpy(np.array(a)) for a in acks + votes]
+    key = (str(CPU), None, g)
+
+    def failing(name, dev, call, also=()):
+        assert call(emulated, None) == 0
+        tk._CONTACTED[key].fill_(True)  # as an event launch leaves it
+        raise RuntimeError(f"{name} kernel launch failed")
+
+    monkeypatch.setattr(tk, "_run", failing)
+    with pytest.raises(RuntimeError):
+        tk._sparse_launch(ts.state_from_numpy(f, CPU), CPU, args[:4], args[4:],
+                          True, True, True)
+    assert key not in tk._CONTACTED
+
+    def run(name, dev, call, also=()):
+        assert call(emulated, None) == 0
+
+    monkeypatch.setattr(tk, "_run", run)
+    kout, plain, jx = _sparse_all(f, acks, votes, ALL_ON)
+    _same(kout, plain, ("plain", g))
+    _same(kout, jx, ("jax", g))
+    assert _scratch_clear(g)
+
+
+SLAB_CASES = {
+    "dense": (1, dict(do_tick=True, track_contact=True, has_votes=True), 0),
+    "dense_hier": (1, dict(ALL_ON, has_hier=True), 0),
+    "dense_reads4": (1, dict(ALL_ON, has_reads=True), 4),
+    "dense_reads8": (1, dict(ALL_ON, has_reads=True, has_hier=True), 8),
+    "sparse": (0, dict(ALL_ON), 0),
+    "sparse_hier": (0, dict(ALL_ON, has_hier=True), 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+@pytest.mark.parametrize("p", WIDTHS)
+def test_slab_barrier_out_of_row_reads(emulated, p, case):
+    """A row read of a region's byte cells may reach up to 7 bytes past
+    its last row; the bulk copies' barrier lies beyond that reach of the
+    last region, 8-byte aligned, inside the shared memory a block asks
+    for."""
+    dense, flags, s = SLAB_CASES[case]
+    out = (ctypes.c_int * 3)()
+    bits = tk._bits(flags["do_tick"], flags["track_contact"], flags["has_votes"],
+                    has_hier=flags.get("has_hier", False),
+                    has_reads=flags.get("has_reads", False))
+    rows = emulated.qs_slab_layout(dense, p, s, bits, out)
+    end, bar, nbytes = out
+    assert rows in (32, 64, 128, 256)
+    assert bar >= end + 8 and bar % 8 == 0 and nbytes >= bar + 8
