@@ -78,7 +78,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    state: ``quorum_multistep`` on the sparse rounds,
    ``quorum_multistep_dense`` on their numpy collapse and 16 launches of
    the sparse step; the three bit-equal, and equal to the CPU's plain
-   scan.
+   scan;
+13. the quorum coordinator (``dragonboat_tpu_torch/coordinator.py``) at
+   NodeHost's width: 100,000 groups x 8 slots, 5 voters a group, device
+   ticks, the read plane and the fold on, the hier rule on a third of
+   the groups and 4,096 groups bound to the devsm plane, registered
+   through ``register`` with this script's duck-typed nodes and rafts;
+   the warm-up timed to its latch, then 24 scripted rounds driven by
+   ``flush()`` (writes acked by followers 2 and 3, ReadIndex reads
+   echoed by them, elections won, membership changes, devsm SETs, a tick
+   backlog of 6 every sixth round for the fused path, quiet rounds for
+   the sparse step), a CPU coordinator fed the same script and equal
+   after every flush in every effect, engine tensor and tally; then two
+   65,536-group coordinators live at once on the default stream for
+   10 s, each ending with every group committed to its last acked index
+   and every staged read confirmed.
 
 Phase 2 also holds the READS instances of K1 and K3 (the read plane)
 against the plain versions at 65,536 x 5 over the flag grids, and at
@@ -108,7 +122,7 @@ as views that start off a 16-byte boundary, and two K2 launches back to
 back on the current stream and on a side stream, whose contacted scratch
 must be all zero after each.  Operation bounds use the
 card's INT32 issue rate, read from ``nvidia-smi`` (``int32_peak``).
-Each of phases 3 to 12 drives a main path: the launch counters are
+Each of phases 3 to 13 drives a main path: the launch counters are
 zeroed just before it and read just after, and every kernel that path
 runs must have launched.  JSON lines report what was measured; the line
 before the last is the card's name and power limit, the last line the
@@ -116,6 +130,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -168,6 +183,8 @@ TPU_KERNELS = {  # the JAX function each CUDA kernel replaces
                          "bench.py:131"),
 }
 STEP_KERNELS = ("quorum_step_dense", "quorum_step", "quorum_multiround")
+# every kernel the coordinator's rounds launch (phase 13)
+COORD_KERNELS = STEP_KERNELS + ("read_plane", "finish_hier", "telem_fold", "kv_plane")
 
 
 class PhaseError(Exception):
@@ -1191,7 +1208,7 @@ def _step_edges(torch, ts, tk, dev, record):
     and two K2 launches back to back on one state, on the current stream
     and on a side stream, whose contacted scratch must be all zero after
     each.  Returns the comparisons made."""
-    n = 0
+    n, streams = 0, set()
     side = torch.cuda.Stream(dev)
     for g in STEP_EDGE_G:
         for p in STEP_EDGE_P:
@@ -1252,12 +1269,13 @@ def _step_edges(torch, ts, tk, dev, record):
                     record("quorum_step", _ALL_ON, _equal_outputs(
                         torch, ts, tk, kout, pout,
                         f"quorum_step G={g} P={p} launch {k} side={on_side}"))
-                    scratch = tk._CONTACTED.get((str(dev), stream, g))
+                    key = tk._contact_key(st_k, dev, stream)
+                    scratch = tk._CONTACTED.get(key)
                     check(scratch is not None and not bool(scratch.any()),
                           f"quorum_step G={g} P={p} launch {k} side={on_side}: the contacted "
                           "scratch is missing or left off zero")
+                    streams.add(key[1])
                     n += 1
-    streams = {key[1] for key in tk._CONTACTED if key[0] == str(dev)}
     check(side.cuda_stream in streams and len(streams) >= 2,
           "quorum_step: the side stream shares the contacted scratch")
     return n
@@ -2881,6 +2899,530 @@ def phase_multistep(torch, engine_mod, tk, ts, dev, n=65_536, r=16):
 # ----------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------
+# phase 13: the quorum coordinator (dragonboat_tpu_torch/coordinator.py)
+# ----------------------------------------------------------------------
+
+COORD_G = 100_000      # BASELINE rung 5's groups
+COORD_P = 8            # NodeHost's n_peers
+COORD_ROUNDS = 24
+COORD_ELECT = 1_024    # groups through candidate and votes each round
+COORD_RESYNC = 256     # groups through membership_changed each round
+COORD_DEVSM = 4_096    # groups bound to the devsm plane
+COORD_QUIET = 4_096    # writers of a quiet round (K2)
+LIVE_G = 65_536
+LIVE_S = 10.0
+LEADER, CANDIDATE, FOLLOWER = "leader", "candidate", "follower"
+
+
+class _Remote:
+    __slots__ = ("match",)
+
+    def __init__(self, match):
+        self.match = match
+
+
+class _Log:
+    __slots__ = ("raft",)
+
+    def __init__(self, raft):
+        self.raft = raft
+
+    def last_index(self):
+        return self.raft.last
+
+
+class _Near:
+    """Hier geometry stand-in: replicas 1-3 share this replica's domain."""
+
+    @staticmethod
+    def near_voters(voters):
+        return [v for v in voters if v in (1, 2, 3)]
+
+
+class StubRaft:
+    """The scalar raft as the coordinator reads it (duck-typed): five
+    voters, this replica is node 1.  ``offload`` is the coordinator the
+    transitions stage into, as a raft's offload hooks do."""
+
+    __slots__ = ("cluster_id", "node_id", "term", "state", "last", "acked",
+                 "committed", "term_start_index", "hier", "offload",
+                 "randomized_election_timeout", "device_reads", "log", "votes")
+    lease = None
+    witnesses = {}
+    observers = {}
+    election_timeout = 10
+    heartbeat_timeout = 1
+    check_quorum = False
+
+    def __init__(self, cid, hier, offload):
+        self.cluster_id = cid
+        self.node_id = 1
+        self.term = 1
+        self.state = LEADER
+        self.last = self.acked = self.term_start_index = 1
+        self.committed = 0
+        self.hier = _Near if hier else None
+        self.offload = offload
+        self.randomized_election_timeout = 10 + cid % 10
+        self.device_reads = False
+        self.log = _Log(self)
+        self.votes = {}
+
+    @property
+    def remotes(self):
+        return {1: _Remote(self.last), 2: _Remote(self.acked), 3: _Remote(self.acked),
+                4: _Remote(0), 5: _Remote(0)}
+
+    def is_leader(self):
+        return self.state == LEADER
+
+    def is_candidate(self):
+        return self.state == CANDIDATE
+
+    def write(self):
+        """One entry appended and acked by followers 2 and 3 (quorum 3 of
+        5 with the self ack the append stages)."""
+        self.last += 1
+        self.acked = self.last
+        off, cid, last = self.offload, self.cluster_id, self.last
+        off.ack(cid, 1, last)
+        off.ack(cid, 2, last)
+        off.ack(cid, 3, last)
+
+    def become_candidate(self):
+        self.state = CANDIDATE
+        self.term += 1
+        self.offload.set_candidate(self.cluster_id, self.term)
+
+    def become_leader(self):
+        self.state = LEADER
+        self.last += 1  # the term's noop
+        self.term_start_index = self.last
+        self.offload.ack(self.cluster_id, 1, self.last)
+        self.offload.set_leader(self.cluster_id, self.term, self.last, self.last)
+
+
+class _Peer:
+    __slots__ = ("raft",)
+
+    def __init__(self, raft):
+        self.raft = raft
+
+
+class StubNode:
+    """A node as the coordinator drives it: every offload effect is
+    applied with the scalar guards and logged as ``(cid, kind, ...)``;
+    ``sm`` reports the raft's committed index as applied (the devsm
+    plane's bind gate)."""
+
+    __slots__ = ("cluster_id", "raft_mu", "peer", "sm", "log")
+
+    def __init__(self, raft, log):
+        self.cluster_id = raft.cluster_id
+        self.raft_mu = contextlib.nullcontext()
+        self.peer = _Peer(raft)
+        self.sm = self
+        self.log = log
+
+    def get_last_applied(self):
+        return self.peer.raft.committed
+
+    def offload_commit(self, q):
+        r = self.peer.raft
+        self.log.append((self.cluster_id, "c", q))
+        if r.state == LEADER and q > r.committed:
+            r.committed = min(q, r.last)
+
+    def offload_election(self, won, term):
+        r = self.peer.raft
+        self.log.append((self.cluster_id, "w" if won else "l", term))
+        if r.state == CANDIDATE and r.term == term:
+            if won:
+                r.become_leader()
+            else:
+                r.state = FOLLOWER
+                r.offload.set_follower(self.cluster_id, r.term)
+
+    def offload_read_confirm(self, low, high, term):
+        self.log.append((self.cluster_id, "r", low, high, term))
+
+    def offload_read_echo(self, from_, low, high):
+        self.log.append((self.cluster_id, "e", from_, low, high))
+
+    def offload_tick_elect(self):
+        self.log.append((self.cluster_id, "te"))
+
+    def offload_tick_heartbeat(self):
+        self.log.append((self.cluster_id, "th"))
+
+    def offload_tick_demote(self):
+        self.log.append((self.cluster_id, "td"))
+
+
+class LiveNode(StubNode):
+    """The live stretch's node: commits and read confirms are applied and
+    counted, tick flags dropped (the stretch checks watermarks and reads)."""
+
+    __slots__ = ()
+
+    def offload_commit(self, q):
+        r = self.peer.raft
+        if r.state == LEADER and q > r.committed:
+            r.committed = min(q, r.last)
+
+    def offload_read_confirm(self, low, high, term):
+        self.log.append(low)
+
+    def offload_read_echo(self, from_, low, high):
+        self.log.append(-low)  # a ctx the device did not track: a miss
+
+    def offload_tick_elect(self):
+        pass
+
+    def offload_tick_heartbeat(self):
+        pass
+
+    def offload_tick_demote(self):
+        pass
+
+
+def _timed_calls(obj, names, acc):
+    """Wrap ``obj``'s methods ``names`` so each call's wall seconds add to
+    ``acc[name]`` and its count to ``acc[name + "_calls"]`` (a timing
+    wrapper of this script, not of the package)."""
+    for name in names:
+        fn = getattr(obj, name)
+        acc.setdefault(name, 0.0)
+        acc.setdefault(name + "_calls", 0)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                acc[_name] += time.perf_counter() - t0
+                acc[_name + "_calls"] += 1
+        setattr(obj, name, timed)
+
+
+class CoordSide:
+    """One coordinator of the scripted rounds with its stub rafts."""
+
+    def __init__(self, coord_mod, devsm_mod, dev, n):
+        self.coord = coord_mod.QuorumCoordinator(
+            capacity=n, n_peers=COORD_P, drive_ticks=True, drive_reads=True,
+            telem=True, interval_s=60.0, device=dev)
+        self.devsm_mod = devsm_mod
+        self.log = []
+        self.rafts = {}
+
+    def warm(self):
+        """Warm-up timed to its latch, then the devsm variants; then park
+        the round thread so that ``flush()`` alone groups ops into rounds."""
+        c = self.coord
+        t0 = time.perf_counter()
+        c.start_warmup().join()
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c.eng.warmup_devsm(background=False)
+        kv_s = time.perf_counter() - t0
+        check(c.eng.fused_ready and c.eng.kv_fused_ready and
+              c.warmup_stats["error"] is None, f"warm-up failed: {c.warmup_stats}")
+        c.stop()
+        return fused_s, kv_s
+
+    def register(self, n, devsm_cids):
+        c = self.coord
+        for cid in range(1, n + 1):
+            r = StubRaft(cid, cid % 3 == 0, c)
+            self.rafts[cid] = r
+            c.register(StubNode(r, self.log))
+        plane = c.devsm_plane()
+        for cid in devsm_cids:
+            plane.register(cid, self.devsm_mod.DeviceKVStateMachine(cid, 1))
+            with c._mu:
+                plane.on_leader(cid, self.rafts[cid].last)
+
+    def stage_round(self, rnd, plan):
+        c, rafts = self.coord, self.rafts
+        for cid in plan["writers"]:
+            rafts[cid].write()
+        encode = self.devsm_mod.encode_op
+        for cid in plan["devsm"]:
+            c.stage_sm_ops(cid, [(rafts[cid].last, encode((cid + rnd) % 16, rnd * 1000 + cid % 1000))])
+        for cid in plan["reads"]:
+            r = rafts[cid]
+            low = (rnd + 1) * 1_000_000 + cid
+            c.read_stage(cid, r.committed, low, cid, r.term)
+            c.read_ack_hint(cid, 2, low, cid)
+            c.read_ack_hint(cid, 3, low, cid)
+        for cid in plan["stray_echoes"]:
+            c.read_ack_hint(cid, 2, 999, cid)  # no slot holds it: scalar fallback
+        for cid in plan["elect"]:
+            rafts[cid].become_candidate()
+            c.vote(cid, 1, True)
+            c.vote(cid, 2, True)
+            c.vote(cid, 3, True)
+        for cid in plan["resync"]:
+            c.membership_changed(cid)
+        for _ in range(plan["ticks"]):
+            c.request_tick()
+
+    def tallies(self):
+        c = self.coord
+        return c.read_confirms, c.read_fallbacks, c.fused_dispatches
+
+
+def _coord_plan(rnd, n, devsm):
+    """Round ``rnd``'s script: every sixth round (r % 6 == 5) a tick
+    backlog of 6 with writes and reads and no votes (the fused K3 path);
+    r % 6 == 2 a quiet round of COORD_QUIET writers and nothing else (K2);
+    the others every group's write, 1 in 8 groups' ReadIndex read, the
+    devsm SETs, COORD_ELECT elections and COORD_RESYNC membership
+    changes (K1 with its READS instance and the devsm kernel)."""
+    quiet, backlog = rnd % 6 == 2, rnd % 6 == 5
+    cids = np.arange(1, n + 1)
+    readers = cids[(cids % 8 == rnd % 8) & ~np.isin(cids, devsm)]
+    others = cids[(cids % 8 != rnd % 8) & ~np.isin(cids, devsm)]
+    plan = {"devsm": [], "reads": [], "stray_echoes": [], "elect": [], "resync": [],
+            "ticks": 6 if backlog else 1}
+    if quiet:
+        plan["writers"] = others[:COORD_QUIET].tolist()
+        return plan
+    elect = resync = np.zeros((0,), np.int64)
+    if not backlog:
+        at = (rnd * (COORD_ELECT + COORD_RESYNC)) % (others.size - COORD_ELECT - COORD_RESYNC)
+        elect = others[at:at + COORD_ELECT]
+        resync = others[at + COORD_ELECT:at + COORD_ELECT + COORD_RESYNC]
+    plan["writers"] = cids[~np.isin(cids, elect)].tolist()
+    plan["devsm"] = list(devsm)
+    plan["reads"] = readers.tolist()
+    plan["stray_echoes"] = readers[:8].tolist()
+    plan["elect"] = elect.tolist()
+    plan["resync"] = resync.tolist()
+    return plan
+
+
+def _same_sides(torch, a, b, tag):
+    check(a.log == b.log, f"{tag}: the coordinators' effects differ "
+          f"({len(a.log)} against {len(b.log)})")
+    da, db = a.coord.eng.dev, b.coord.eng.dev
+    for name in da._fields:
+        check(torch.equal(getattr(da, name).cpu(), getattr(db, name).cpu()),
+              f"{tag}: engine state {name} differs")
+    check(a.tallies() == b.tallies(), f"{tag}: tallies {a.tallies()} against {b.tallies()}")
+    ta, tb = a.coord.telem_snapshot(), b.coord.telem_snapshot()
+    check((ta is None) == (tb is None), f"{tag}: one telemetry snapshot is missing")
+    if ta is not None:
+        for key in ta:
+            check(key in ("seq", "mono") or ta[key] == tb[key],
+                  f"{tag}: telemetry {key} differs")
+
+
+def _live_stretch(torch, coord_mod, tk, dev, n=LIVE_G, seconds=LIVE_S):
+    """Two coordinators of ``n`` groups in one process on the default
+    stream, their round threads and warm-ups live: a driver thread stages
+    writes (three acks each) and ReadIndex reads (two echoes each), a
+    ticker calls ``request_tick`` every 2 ms.  Every group must end
+    committed to its last acked index and every staged read confirmed."""
+    import threading
+
+    sides = []
+    for _ in range(2):
+        c = coord_mod.QuorumCoordinator(
+            capacity=n, n_peers=COORD_P, drive_ticks=True, drive_reads=True,
+            telem=True, interval_s=0.002, device=dev)
+        confirmed = []
+        rafts = [StubRaft(cid, False, c) for cid in range(1, n + 1)]
+        for r in rafts:
+            c.register(LiveNode(r, confirmed))
+        sides.append((c, rafts, confirmed, []))
+    warmers = [c.start_warmup() for c, *_ in sides]
+    round_acc = [{} for _ in sides]
+    for (c, *_), acc in zip(sides, round_acc):
+        _timed_calls(c, ("_round",), acc)
+    stop = threading.Event()
+    errors = []
+
+    def ticker():
+        while not stop.wait(0.002):
+            for c, *_ in sides:
+                c.request_tick()
+
+    def driver():
+        """Waves of one write per group and a read on 1 group in 8; the
+        next wave waits until both round threads drained this one (the
+        flow control a raft's inflight window gives), so no group ever
+        holds more pending reads than it has slots."""
+        try:
+            wave = 0
+            while not stop.is_set():
+                wave += 1
+                for c, rafts, _, staged in sides:
+                    for r in rafts:
+                        r.write()
+                        if (r.cluster_id + wave) % 8 == 0:
+                            low = wave * 1_000_000 + r.cluster_id
+                            c.read_stage(r.cluster_id, r.committed, low, r.cluster_id, r.term)
+                            c.read_ack_hint(r.cluster_id, 2, low, r.cluster_id)
+                            c.read_ack_hint(r.cluster_id, 3, low, r.cluster_id)
+                            staged.append(low)
+                for c, *_ in sides:
+                    while c._staged and not stop.is_set():
+                        time.sleep(0.0005)
+        except Exception as e:  # reported by the main thread
+            errors.append(repr(e))
+
+    base = [sum(r.committed for r in rafts) for _, rafts, _, _ in sides]
+    threads = [threading.Thread(target=ticker), threading.Thread(target=driver)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    committed = [sum(r.committed for r in rafts) - b for (_, rafts, _, _), b in zip(sides, base)]
+    reads = [len(conf) for _, _, conf, _ in sides]
+    check(not errors, f"live stretch driver failed: {errors}")
+    t_end = time.perf_counter()
+    deadline = t_end + 60
+    while time.perf_counter() < deadline:
+        done = all(
+            all(r.committed == r.last for r in rafts) and len(conf) == len(staged)
+            for _, rafts, conf, staged in sides)
+        if done:
+            break
+        for c, *_ in sides:
+            c.flush()
+    drain_s = time.perf_counter() - t_end
+    for c, *_ in sides:
+        c.stop()
+    for t in warmers:
+        t.join()
+    out = {"groups_each": n, "seconds": elapsed, "drain_s": drain_s}
+    for i, (c, rafts, conf, staged) in enumerate(sides):
+        last = np.fromiter((r.last for r in rafts), np.int64, n)
+        got = np.fromiter((r.committed for r in rafts), np.int64, n)
+        check(np.array_equal(got, last),
+              f"live stretch coordinator {i}: {int((got != last).sum())} groups "
+              "short of their last acked index")
+        check(sorted(conf) == sorted(staged),
+              f"live stretch coordinator {i}: {len(conf)} reads confirmed of "
+              f"{len(staged)} staged ({c.read_fallbacks} fell back)")
+        writes = int(last.sum() - n)
+        acc = round_acc[i]
+        out[f"coord{i}"] = {
+            "writes": writes, "reads": len(staged),
+            # landed inside the stretch, and over the stretch and its drain
+            "commits_per_s": committed[i] / elapsed, "reads_per_s": reads[i] / elapsed,
+            "sustained_commits_per_s": writes / (elapsed + drain_s),
+            "sustained_reads_per_s": len(staged) / (elapsed + drain_s),
+            "rounds": acc["_round_calls"], "round_ms_mean": 1e3 * acc["_round"] / max(acc["_round_calls"], 1),
+            "fused_dispatches": c.fused_dispatches, "read_fallbacks": c.read_fallbacks,
+            "warmup": dict(c.warmup_stats),
+        }
+    return out
+
+
+def phase_coordinator(torch, tk, dev, n=COORD_G, rounds=COORD_ROUNDS, live_n=LIVE_G,
+                      live_s=LIVE_S):
+    """The quorum coordinator at NodeHost's width: ``n`` groups x P = 8
+    slots, 5 voters a group, device ticks, the read plane and the fold on,
+    a third of the groups with the hier rule and COORD_DEVSM bound to the
+    devsm plane.  (1) the warm-up, timed to its latch; (2) ``rounds``
+    scripted rounds (``_coord_plan``) driven by ``flush()`` with the round
+    thread parked, the same script fed to a CPU coordinator: after every
+    flush every effect, every engine state tensor, the tallies and the
+    telemetry snapshot equal; (3) the live stretch (``_live_stretch``);
+    (4) the report: warm-up, flush p50/p99 with the engine's share, the
+    drain and the rest (the fan-out), launches after the warm-up."""
+    from dragonboat_tpu_torch import coordinator as coord_mod
+    from dragonboat_tpu_torch import devsm as devsm_mod
+
+    t_phase = time.perf_counter()
+    cuda = CoordSide(coord_mod, devsm_mod, dev, n)
+    cpu = CoordSide(coord_mod, devsm_mod, "cpu", n)
+    warm = {"cuda": cuda.warm(), "cpu": cpu.warm()}
+    stats = dict(cuda.coord.warmup_stats)
+    after_warm = tk.launch_counts()
+    devsm = list(range(7, n + 1, 24))[:COORD_DEVSM]
+    t0 = time.perf_counter()
+    for side in (cuda, cpu):
+        side.register(n, devsm)
+    register_s = time.perf_counter() - t0
+    for side in (cuda, cpu):
+        side.coord.flush()
+    _same_sides(torch, cuda, cpu, "registration")
+    cuda.log.clear()
+    cpu.log.clear()
+    acc = {"step": 0.0, "step_rounds": 0.0, "_drain_locked": 0.0}
+    _timed_calls(cuda.coord.eng, ("step", "step_rounds"), acc)
+    _timed_calls(cuda.coord, ("_drain_locked",), acc)
+    flush_ms, engine_ms, drain_ms, stage_ms, staged_reads = [], [], [], [], 0
+    for rnd in range(rounds):
+        plan = _coord_plan(rnd, n, devsm)
+        staged_reads += len(plan["reads"])
+        for side in (cuda, cpu):
+            t0 = time.perf_counter()
+            side.stage_round(rnd, plan)
+            if side is cuda:
+                stage_ms.append((time.perf_counter() - t0) * 1e3)
+                before = dict(acc)
+                t0 = time.perf_counter()
+                side.coord.flush()
+                flush_ms.append((time.perf_counter() - t0) * 1e3)
+                engine_ms.append((acc["step"] + acc["step_rounds"] - before["step"]
+                                  - before["step_rounds"]) * 1e3)
+                drain_ms.append((acc["_drain_locked"] - before["_drain_locked"]) * 1e3)
+            else:
+                side.coord.flush()
+        _same_sides(torch, cuda, cpu, f"round {rnd}")
+        cuda.log.clear()
+        cpu.log.clear()
+    # what the last round's fan-out staged (won elections' promotions)
+    for side in (cuda, cpu):
+        side.coord.flush()
+    _same_sides(torch, cuda, cpu, "drain")
+    counts = tk.launch_counts()
+    scripted = {k: counts[k] - after_warm[k] for k in counts}
+    for name in COORD_KERNELS:
+        check(scripted[name] > 0, f"{name} never launched by the coordinator's rounds")
+    c = cuda.coord
+    lag = [cid for cid, r in cuda.rafts.items() if r.committed != r.last or r.state != LEADER]
+    check(not lag, f"{len(lag)} groups not committed to their last index (e.g. {lag[:5]})")
+    check(c.read_confirms == staged_reads,
+          f"{c.read_confirms} reads confirmed of {staged_reads} staged")
+    check(c.fused_dispatches >= rounds // 6, f"only {c.fused_dispatches} fused dispatches")
+    plane = c.devsm
+    check(len(plane._bound) == len(devsm) and plane.ops_staged > 0,
+          f"devsm: {len(plane._bound)} of {len(devsm)} groups bound, "
+          f"{plane.ops_staged} ops staged")
+    fanout_ms = [f - e - d for f, e, d in zip(flush_ms, engine_ms, drain_ms)]
+    scripted_s = time.perf_counter() - t_phase
+    live = _live_stretch(torch, coord_mod, tk, dev, live_n, live_s)
+    return {
+        "phase": "coordinator", "groups": n, "peers": COORD_P, "voters": 5,
+        "rounds": rounds,
+        "warmup": {"fused_s_cuda": warm["cuda"][0], "devsm_s_cuda": warm["cuda"][1],
+                   "fused_s_cpu": warm["cpu"][0], "devsm_s_cpu": warm["cpu"][1], **stats},
+        "register_s_both": register_s,
+        "stage_ms_p50": _p(stage_ms, 50), "flush_ms_p50": _p(flush_ms, 50),
+        "flush_ms_p99": _p(flush_ms, 99), "flush_ms_max": max(flush_ms),
+        "engine_ms_p50": _p(engine_ms, 50), "engine_ms_p99": _p(engine_ms, 99),
+        "drain_ms_p50": _p(drain_ms, 50), "drain_ms_p99": _p(drain_ms, 99),
+        "fanout_and_rest_ms_p50": _p(fanout_ms, 50), "fanout_and_rest_ms_p99": _p(fanout_ms, 99),
+        "engine_share": sum(engine_ms) / sum(flush_ms),
+        "flush_ms": flush_ms, "engine_ms": engine_ms, "drain_ms": drain_ms,
+        "fused_dispatches": c.fused_dispatches, "read_confirms": c.read_confirms,
+        "read_fallbacks": c.read_fallbacks, "devsm_bound": len(plane._bound),
+        "devsm_ops_staged": plane.ops_staged, "scripted_launches": scripted,
+        "scripted_s": scripted_s, "live": live,
+    }
+
+
 def _registers(log):
     """The most registers any instance of each source uses (nvcc's
     ``-Xptxas -v`` report, kept by the build)."""
@@ -2999,6 +3541,8 @@ def main(argv) -> int:
                   ("staged_multistep", "quorum_multiround"))
         main_path("multistep", lambda: phase_multistep(torch, engine_mod, tk, ts, dev),
                   MULTISTEPS)
+        main_path("coordinator", lambda: emit(phase_coordinator(torch, tk, dev)),
+                  COORD_KERNELS)
         if only is not None:
             check(only <= ran, f"no main path named {sorted(only - ran)}")
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -44,12 +44,21 @@ machine ops (``stage_kv_ops``: SETs of a key slot at a log index) wait in
 a per-row entry buffer and apply in the dispatch whose commit passes
 them; KV reads (``stage_kv_read``) capture the post-apply value.  They
 force the dense step or ride the block, and every dispatch carries the
-plane while an entry sits buffered on the device.  Planes of later slices
-(observability, device profiling, warm-up compilation, ``sharding=``)
+plane while an entry sits buffered on the device.
+
+Warm-up (``warmup_fused``, ``warmup_devsm``) makes one real launch of
+each variant of the live path's closed set (``warm_plan``) on a throwaway
+state of the live state's shapes, on a niced background thread or in the
+caller; on CUDA the first of them loads the one kernel library, or builds
+it.  Only a finished warm-up sets the ``fused_ready`` and
+``kv_fused_ready`` latches the coordinator gates its K-round replay on.
+Planes of later slices (observability, device profiling, ``sharding=``)
 raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
+import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -58,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..logger import get_logger
 from ..platform import pick_device
 from . import _build
 from .kernels import (
@@ -93,11 +103,26 @@ from .state import (
     QuorumState,
 )
 
+elog = get_logger("ops.engine")
+
 # Event batches are padded to fixed sizes (the reference's jit shape).
 DEFAULT_EVENT_CAP = 4096
 
 # Rebase a row when relative indexes pass this (well clear of int32 max).
 REBASE_THRESHOLD = 1 << 30
+
+#: padded fused-block sizes the live coordinator dispatches (and the
+#: warm-up launches): a K-round backlog pads up to the nearest bucket
+WARM_K_BUCKETS = (4, 16)
+
+
+def k_bucket(k: int, buckets=WARM_K_BUCKETS) -> int:
+    """Smallest warm bucket holding ``k`` rounds (the largest bucket for
+    anything beyond: callers cap K at ``max(buckets)``)."""
+    for b in buckets:
+        if k <= b:
+            return b
+    return buckets[-1]
 
 _TORCH_OF = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
              np.dtype(np.int8): torch.int8, np.dtype(np.bool_): torch.bool}
@@ -462,6 +487,22 @@ class BatchedQuorumEngine:
         self._last_telem = None
         self._telem_raw = None
         self._telem_seq = 0
+        #: seq of the newest recorded dispatch span; -1 while observability
+        #: is off, which it is until its slice lands
+        self.last_span_seq = -1
+        # --- warm-up latches ---------------------------------------------
+        # set only by a finished warm-up: until then the coordinator keeps
+        # its rounds on the single-round path
+        self._fused_ready = threading.Event()
+        self._kv_fused_ready = threading.Event()
+        self._warmup_thread: Optional[threading.Thread] = None
+        self._kv_warmup_thread: Optional[threading.Thread] = None
+        self._warmup_mu = threading.Lock()
+        self._warmup_cancel = threading.Event()
+        self.warmup_stats = {
+            "seconds": 0.0, "programs": 0,
+            "cache_hits": 0, "cache_misses": 0, "error": None,
+        }
 
     # ------------------------------------------------------------------
     # planes of later slices
@@ -469,10 +510,303 @@ class BatchedQuorumEngine:
 
     enable_obs = _later("enable_obs", "device-plane observability")
     enable_devprof = _later("enable_devprof", "the device profiling plane")
-    warmup_fused = _later("warmup_fused", "warm-up compilation")
-    warmup_devsm = _later("warmup_devsm", "warm-up compilation")
-    warm_plan = _later("warm_plan", "warm-up compilation")
     lower_variant = _later("lower_variant", "the device profiling plane")
+
+    def disable_obs(self) -> None:
+        """Detach observability: a no-op, nothing attaches before its
+        slice."""
+
+    def disable_devprof(self) -> None:
+        """Detach the device profiling plane: a no-op, nothing attaches
+        before its slice."""
+
+    # ------------------------------------------------------------------
+    # warm-up
+    # ------------------------------------------------------------------
+
+    @property
+    def fused_ready(self) -> bool:
+        """True once a warm-up has launched the fused live-path variants
+        (the coordinator's gate for K>1 dispatches)."""
+        return self._fused_ready.is_set()
+
+    @property
+    def kv_fused_ready(self) -> bool:
+        """True once a warm-up has launched the devsm (has_kv) variants."""
+        return self._kv_fused_ready.is_set()
+
+    def warmup_fused(
+        self,
+        k_buckets=WARM_K_BUCKETS,
+        include_reads: bool = True,
+        include_single: bool = True,
+        background: bool = True,
+        include_kv: bool = False,
+    ):
+        """Launch each variant of the live path's closed set
+        (:meth:`warm_plan`) once against a THROWAWAY state of the live
+        state's shapes.  On CUDA the first launch loads the kernel
+        library, building it if its file is not on disk, so the live
+        path's first use finds it loaded; on the CPU the plain versions
+        run.
+
+        ``background=True`` (default) runs on a niced daemon thread and
+        returns it; the readiness latch (:attr:`fused_ready`) flips only
+        after every variant ran.  Repeat calls are no-ops.  With
+        ``background=False`` the caller runs it and gets
+        :attr:`warmup_stats`.  ``include_kv`` adds the devsm variants."""
+        args = (tuple(k_buckets), include_reads, include_single, include_kv)
+        with self._warmup_mu:
+            if self._warmup_thread is not None or self._fused_ready.is_set():
+                return self._warmup_thread
+            if background:
+                t = threading.Thread(
+                    target=self._warmup_main, args=args,
+                    name="engine-warmup", daemon=True,
+                )
+                self._warmup_thread = t
+                t.start()
+                return t
+        self._warmup_main(*args)
+        return self.warmup_stats
+
+    def warmup_devsm(self, k_buckets=WARM_K_BUCKETS, background: bool = True):
+        """Warm ONLY the devsm (``has_kv``) variants: the late-registration
+        path of a device KV group joining after a kv-free warm-up.  Until
+        :attr:`kv_fused_ready` flips, kv-carrying rounds take the
+        single-round dense path."""
+        args = (tuple(k_buckets),)
+        with self._warmup_mu:
+            if (
+                self._kv_warmup_thread is not None
+                or self._kv_fused_ready.is_set()
+            ):
+                return self._kv_warmup_thread
+            if background:
+                t = threading.Thread(
+                    target=self._warmup_devsm_main, args=args,
+                    name="engine-warmup-devsm", daemon=True,
+                )
+                self._kv_warmup_thread = t
+                t.start()
+                return t
+        self._warmup_devsm_main(*args)
+        return self.warmup_stats
+
+    @staticmethod
+    def _nice_warm_thread() -> None:
+        """Deprioritize the calling warm-up thread (a foreground caller's
+        thread is never niced)."""
+        try:
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+        except (OSError, AttributeError):
+            pass
+
+    def _scratch_state(self) -> QuorumState:
+        return HostMirror(
+            self.n_groups, self.n_peers, self.n_read_slots,
+            self.n_kv_slots, self.n_kv_ents,
+        ).to_device(self.device)
+
+    def _warmup_devsm_main(self, k_buckets) -> None:
+        try:
+            if threading.current_thread() is self._kv_warmup_thread:
+                self._nice_warm_thread()
+            scratch = self._scratch_state()
+            for kind, a, hr, kv in self._kv_plan(k_buckets):
+                if self._warmup_cancel.is_set():
+                    return
+                scratch = self._warm_one(scratch, kind, a, hr, kv)
+                self.warmup_stats["programs"] += 1
+            self._kv_fused_ready.set()
+        except Exception as e:  # latch stays unset; dense path serves kv
+            elog.warning("devsm warmup failed (kv stays single-round): %r", e)
+            self.warmup_stats["error"] = repr(e)
+
+    @staticmethod
+    def _kv_plan(k_buckets):
+        """The devsm variants: fused per K bucket with and without the
+        read plane riding along, plus the dense single-round fallbacks."""
+        plan = [
+            ("fused", k, hr, True)
+            for k in sorted({int(k) for k in k_buckets})
+            for hr in (False, True)
+        ]
+        plan += [("dense", dt, hr, True) for dt in (True, False)
+                 for hr in (False, True)]
+        return plan
+
+    def warm_plan(
+        self,
+        k_buckets=WARM_K_BUCKETS,
+        include_reads: bool = True,
+        include_single: bool = True,
+        include_kv: bool = False,
+    ):
+        """The closed live-path variant set as ``(kind, arg, has_reads,
+        has_kv)`` tuples, in the reference's enumeration and order; its
+        length is the warm-up's ``programs`` count."""
+        read_set = (False, True) if include_reads else (False,)
+        plan = [
+            ("fused", k, hr, False)
+            for k in sorted({int(k) for k in k_buckets})
+            for hr in read_set
+        ]
+        if include_single:
+            plan += [("sparse", dt, False, False) for dt in (True, False)]
+            plan += [
+                ("sparse_votes", dt, False, False) for dt in (True, False)
+            ]
+            if include_reads:
+                plan += [("dense", dt, True, False) for dt in (True, False)]
+        if include_kv:
+            plan += self._kv_plan(k_buckets)
+        return plan
+
+    @staticmethod
+    def variant_label(kind: str, arg, has_reads: bool, has_kv: bool) -> str:
+        """Stable display name of a warm-plan variant."""
+        return (
+            f"{kind}:k{arg}" if kind == "fused"
+            else f"{kind}:{'tick' if arg else 'notick'}"
+        ) + (":reads" if has_reads else "") + (":kv" if has_kv else "")
+
+    def cancel_warmup(self) -> None:
+        """Stop warming after the current variant (coordinator shutdown);
+        a cancelled warm-up leaves the latch unset and records
+        ``error == "cancelled"``."""
+        self._warmup_cancel.set()
+
+    def _library_hits(self) -> Tuple[int, int]:
+        """The warm-up's (cache_hits, cache_misses): on CUDA one library
+        holds every kernel, a hit when its file is already on disk (or
+        loaded); the CPU builds nothing."""
+        if self.device.type != "cuda":
+            return 0, 0
+        if _build.loaded() or os.path.exists(_build.library_path()):
+            return 1, 0
+        return 0, 1
+
+    def _warmup_main(
+        self, k_buckets, include_reads, include_single, include_kv=False
+    ) -> None:
+        t0 = time.perf_counter()
+        try:
+            if threading.current_thread() is self._warmup_thread:
+                self._nice_warm_thread()
+            hits, misses = self._library_hits()
+            scratch = self._scratch_state()
+            plan = self.warm_plan(
+                k_buckets, include_reads, include_single, include_kv
+            )
+            for kind, a, hr, kv in plan:
+                if self._warmup_cancel.is_set():
+                    self.warmup_stats["error"] = "cancelled"
+                    return
+                scratch = self._warm_one(scratch, kind, a, hr, kv)
+                self.warmup_stats["programs"] += 1
+            self.warmup_stats["seconds"] = time.perf_counter() - t0
+            self.warmup_stats["cache_hits"] = hits
+            self.warmup_stats["cache_misses"] = misses
+            self._fused_ready.set()
+            if include_kv:
+                self._kv_fused_ready.set()
+            elog.info(
+                "engine warmup: %d programs in %.2fs (library: %d hits, "
+                "%d misses)",
+                self.warmup_stats["programs"], self.warmup_stats["seconds"],
+                hits, misses,
+            )
+        except Exception as e:  # latch stays unset; live path unaffected
+            self.warmup_stats["error"] = repr(e)
+            self.warmup_stats["seconds"] = time.perf_counter() - t0
+            elog.warning("engine warmup failed (fused path stays off): %r", e)
+
+    def _variant_args(self, kind: str, arg, has_reads: bool, has_kv: bool = False):
+        """Kernel entry point, argument tensors (state excluded) and flags
+        of one warm-plan variant, with the shapes and flags of the live
+        call sites (``_launch_multiround``, ``_dispatch_dense``,
+        ``_dispatch``)."""
+        g, p, s = self.n_groups, self.n_peers, self.n_read_slots
+        e, rk = self.n_kv_ents, self.n_kv_reads
+        dev = self.device
+
+        def mk(shape, dtype, fill=0):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+
+        def read_dims(*lead):
+            return (mk(lead + (g, s), torch.int32, -1),
+                    mk(lead + (g, s), torch.int32),
+                    mk(lead + (g, s, p), torch.bool))
+
+        def kv_dims(*lead):
+            return (mk(lead + (g, e), torch.int32, -1),
+                    mk(lead + (g, e), torch.int32),
+                    mk(lead + (g, e), torch.int32),
+                    mk(lead + (g, rk), torch.int32, -1))
+
+        if kind == "fused":
+            k = arg
+            read_args = read_dims(k) if has_reads else (None, None, None)
+            kv_args = kv_dims(k) if has_kv else (None, None, None, None)
+            args = (
+                mk((k, g, p), torch.int32, -1),
+                mk((1, 1, 1), torch.int8),
+                *(mk((k, 1), torch.int32) for _ in range(4)),
+                mk((k,), torch.bool, True),
+            ) + read_args + kv_args
+            flags = dict(
+                do_tick=True, track_contact=True, has_votes=False,
+                has_churn=False, has_reads=has_reads, purge_reads=False,
+                has_kv=has_kv, purge_kv=False, has_hier=self._hier_used,
+                has_telem=self._telem_used, purge_telem=False,
+                telem_k=self.n_telem_topk,
+            )
+            return quorum_multiround, args, flags
+        if kind == "dense":
+            do_tick = arg
+            read_args = read_dims() if has_reads else (None, None, None)
+            kv_args = kv_dims() if has_kv else (None, None, None, None)
+            args = (
+                mk((g, p), torch.int32),
+                mk((g, p), torch.bool),
+                mk((1, 1), torch.int8),
+            ) + read_args + kv_args
+            flags = dict(
+                do_tick=do_tick, track_contact=self.device_ticks or do_tick,
+                has_votes=False, has_reads=has_reads, has_kv=has_kv,
+                has_hier=self._hier_used, has_telem=self._telem_used,
+                telem_k=self.n_telem_topk,
+            )
+            return quorum_step_dense, args, flags
+        # the sparse single-round step (the quiet-path workhorse)
+        do_tick = arg
+        has_votes = kind == "sparse_votes"
+        cap = self.event_cap
+        vcap = cap if has_votes else 1  # vote events pad to the event cap
+        args = (mk((cap,), torch.int32), mk((cap,), torch.int32),
+                mk((cap,), torch.int32), mk((cap,), torch.bool),
+                mk((vcap,), torch.int32), mk((vcap,), torch.int32),
+                mk((vcap,), torch.int8), mk((vcap,), torch.bool))
+        flags = dict(
+            do_tick=do_tick, track_contact=self.device_ticks or do_tick,
+            has_votes=has_votes, has_hier=self._hier_used,
+            has_telem=self._telem_used, telem_k=self.n_telem_topk,
+            has_reads=self._read_plane_used, has_kv=self._devsm_used,
+        )
+        return quorum_step, args, flags
+
+    def _warm_one(
+        self, scratch: QuorumState, kind: str, arg, has_reads: bool,
+        has_kv: bool = False,
+    ) -> QuorumState:
+        """One real launch of a variant on the scratch state (updated in
+        place and returned), waited for on its stream."""
+        fn, args, flags = self._variant_args(kind, arg, has_reads, has_kv)
+        out = fn(scratch, *args, **flags)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out.state
 
     # ------------------------------------------------------------------
     # device telemetry fold
@@ -538,18 +872,6 @@ class BatchedQuorumEngine:
             "kv_ents": int(block[s + 2]),
             "topk": topk,
         }
-
-    @property
-    def fused_ready(self) -> bool:
-        """True once the kernels are built (always on the CPU, which runs
-        the plain versions and builds nothing)."""
-        return self.device.type == "cpu" or _build.loaded()
-
-    @property
-    def kv_fused_ready(self) -> bool:
-        """True once the device state machine's kernel is built: it is
-        part of the one library, so this is :attr:`fused_ready`."""
-        return self.fused_ready
 
     @property
     def dev(self) -> QuorumState:

@@ -52,6 +52,7 @@ reference leaves duplicates unspecified, and so does the port.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -1227,8 +1228,8 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
     def call(lib, stream):
         contacted = None
         if track_contact:
-            keys.append((str(dev), stream, g))
-            contacted = _contact_scratch(*keys[-1])
+            keys.append(_contact_key(st, dev, stream))
+            contacted = _contact_scratch(st, keys[-1])
         return lib.qs_sparse(
             ctypes.byref(cst), _ptr(ack_g), _ptr(ack_p), _ptr(ack_val),
             _ptr(ack_valid), n_acks, _ptr(vote_g), _ptr(vote_p), _ptr(vote_grant),
@@ -1245,18 +1246,27 @@ def _sparse_launch(st, dev, acks, votes, do_tick, track_contact, has_votes,
     return _outputs(st, buf)
 
 
-# K2's (G,) contacted scratch, one per (device, stream, G), zeroed once:
-# the event launch sets a row's byte and the row launch puts it back to 0,
-# so every launch with track_contact leaves it all zero and none clears
-# it first; a launch on another stream never shares it
+# K2's (G,) contacted scratch, one per (device, stream, state), zeroed
+# once: the event launch sets a row's byte and the row launch puts it back
+# to 0, so every launch with track_contact leaves it all zero and none
+# clears it first.  A state's scratch is keyed by its ``committed`` tensor
+# and dropped with it, so two states never share one: two engines stepping
+# on one stream from two host threads may interleave their launches (one
+# ``qs_sparse`` call queues two, with the GIL released), and a shared
+# scratch would let one engine's row pass reset the other's election clocks
 _CONTACTED: dict = {}
 
 
-def _contact_scratch(dev: str, stream, g: int) -> torch.Tensor:
-    key = (dev, stream, g)
+def _contact_key(st: QuorumState, dev, stream) -> tuple:
+    return (str(dev), stream, st.committed.data_ptr())
+
+
+def _contact_scratch(st: QuorumState, key: tuple) -> torch.Tensor:
     scratch = _CONTACTED.get(key)
     if scratch is None:
-        scratch = _CONTACTED[key] = torch.zeros((g,), dtype=BOOL, device=dev)
+        g = st.committed.shape[0]
+        scratch = _CONTACTED[key] = torch.zeros((g,), dtype=BOOL, device=key[0])
+        weakref.finalize(st.committed, _CONTACTED.pop, key, None)
     return scratch
 
 

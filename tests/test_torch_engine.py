@@ -300,10 +300,11 @@ def test_engine_needs_a_device_and_refuses_later_planes():
     with pytest.raises(NotImplementedError, match="later slice"):
         BatchedQuorumEngine(4, 3, sharding=object(), device="cpu")
     eng = BatchedQuorumEngine(4, 3, device="cpu")
-    assert eng.fused_ready and eng.kv_fused_ready
+    # the warm-up latches start unset: only a finished warm-up sets them
+    assert not eng.fused_ready and not eng.kv_fused_ready
     eng.add_group(1, node_ids=[1, 2, 3], self_id=1)
-    for call in (lambda: eng.warmup_fused(), lambda: eng.warmup_devsm(),
-                 lambda: eng.enable_obs(), lambda: eng.warm_plan()):
+    for call in (lambda: eng.enable_obs(), lambda: eng.enable_devprof(object()),
+                 lambda: eng.lower_variant("fused", 4, False)):
         with pytest.raises(NotImplementedError, match="later slice"):
             call()
     # the read, devsm, hier and telemetry planes are carried now

@@ -26,6 +26,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import sys\n"
         "import dragonboat_tpu_torch, dragonboat_tpu_torch.ops.engine\n"
         "import dragonboat_tpu_torch.ops.kernels, dragonboat_tpu_torch.ops._build\n"
+        "import dragonboat_tpu_torch.coordinator, dragonboat_tpu_torch.lease\n"
+        "import dragonboat_tpu_torch.statemachine, dragonboat_tpu_torch.raft.hier\n"
+        "import dragonboat_tpu_torch.devsm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dragonboat_tpu'))\n"
         "print(repr(bad))\n"

@@ -240,8 +240,8 @@ def _sparse_all(f, acks, votes, flags, offsets=()):
     return kout, plain, jx
 
 
-def _scratch_clear(g):
-    scratch = tk._CONTACTED.get((str(CPU), None, g))
+def _scratch_clear(st):
+    scratch = tk._CONTACTED.get(tk._contact_key(st, CPU, None))
     return scratch is None or not bool(scratch.any())
 
 
@@ -280,7 +280,7 @@ def test_sparse_step_block_edges(launch, g, p, case):
     kout, plain, jx = _sparse_all(f, acks, votes, flags)
     _same(kout, plain, ("plain", g, p, case))
     _same(kout, jx, ("jax", g, p, case))
-    assert _scratch_clear(g), "the contacted scratch is left off zero"
+    assert _scratch_clear(kout.state), "the contacted scratch is left off zero"
 
 
 @pytest.mark.parametrize("p", WIDTHS)
@@ -298,7 +298,7 @@ def test_sparse_step_back_to_back(launch, g, p):
         acks, votes = _sparse_inputs(seed + 100 * k, g, p)
         args = [torch.from_numpy(np.array(a)) for a in acks + votes]
         kout = tk._sparse_launch(st, CPU, args[:4], args[4:], True, True, True)
-        assert _scratch_clear(g), ("the contacted scratch is left off zero", k)
+        assert _scratch_clear(st), ("the contacted scratch is left off zero", k)
         plain = tk.quorum_step_impl(want, *args)
         want = plain.state
         jx = jk.quorum_step_impl(jst, *(jnp.asarray(a) for a in acks + votes))
@@ -350,7 +350,8 @@ def test_sparse_step_failed_launch_drops_scratch(emulated, monkeypatch, g):
     f = _fields(seed, g, p)
     acks, votes = _sparse_inputs(seed, g, p)
     args = [torch.from_numpy(np.array(a)) for a in acks + votes]
-    key = (str(CPU), None, g)
+    st = ts.state_from_numpy(f, CPU)
+    key = tk._contact_key(st, CPU, None)
 
     def failing(name, dev, call, also=()):
         assert call(emulated, None) == 0
@@ -359,8 +360,7 @@ def test_sparse_step_failed_launch_drops_scratch(emulated, monkeypatch, g):
 
     monkeypatch.setattr(tk, "_run", failing)
     with pytest.raises(RuntimeError):
-        tk._sparse_launch(ts.state_from_numpy(f, CPU), CPU, args[:4], args[4:],
-                          True, True, True)
+        tk._sparse_launch(st, CPU, args[:4], args[4:], True, True, True)
     assert key not in tk._CONTACTED
 
     def run(name, dev, call, also=()):
@@ -370,7 +370,39 @@ def test_sparse_step_failed_launch_drops_scratch(emulated, monkeypatch, g):
     kout, plain, jx = _sparse_all(f, acks, votes, ALL_ON)
     _same(kout, plain, ("plain", g))
     _same(kout, jx, ("jax", g))
-    assert _scratch_clear(g)
+    assert _scratch_clear(kout.state)
+
+
+@pytest.mark.parametrize("g", [257, 4_099])
+def test_sparse_step_states_never_share_scratch(launch, g):
+    """Two states of the same G keep contacted scratches of their own: a
+    byte left set in one state's scratch (as its event launch leaves it
+    when another thread's launch runs between its two) neither reaches the
+    other state's row pass nor is cleared by it, and a state's scratch
+    goes with the state."""
+    p, seed = 5, 6_000 * g
+    fa, fb = _fields(seed, g, p), _fields(seed + 1, g, p)
+    st_a, st_b = ts.state_from_numpy(fa, CPU), ts.state_from_numpy(fb, CPU)
+    acks, votes = _sparse_inputs(seed, g, p)
+    args = [torch.from_numpy(np.array(a)) for a in acks + votes]
+    tk._sparse_launch(st_a, CPU, args[:4], args[4:], True, True, True)
+    key_a = tk._contact_key(st_a, CPU, None)
+    key_b = tk._contact_key(st_b, CPU, None)
+    assert key_a != key_b
+    scratch_a = tk._CONTACTED[key_a]
+    scratch_a[::3] = True  # A's event launch ran; its row launch has not yet
+    left = scratch_a.clone()
+    _, plain, jx = _sparse_all(fb, acks, votes, ALL_ON)
+    kout = tk._sparse_launch(st_b, CPU, args[:4], args[4:], True, True, True)
+    _same(kout, plain, ("plain", g))
+    _same(kout, jx, ("jax", g))
+    scratch_b = tk._CONTACTED[key_b]
+    assert scratch_b.data_ptr() != scratch_a.data_ptr()
+    assert not bool(scratch_b.any())
+    assert torch.equal(tk._CONTACTED[key_a], left)
+    del st_a
+    assert key_a not in tk._CONTACTED
+    assert key_b in tk._CONTACTED
 
 
 SLAB_CASES = {
