@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --only raft   # the build and the Raft path
     python3 chip_smoke.py --only rung4,rung4_devsm
                                      # the build and the named main paths
                                      # alone (no result line); the name
@@ -92,7 +93,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    after every flush in every effect, engine tensor and tally; then two
    65,536-group coordinators live at once on the default stream for
    10 s, each ending with every group committed to its last acked index
-   and every staged read confirmed.
+   and every staged read confirmed;
+14. the port's own Raft groups (``dragonboat_tpu_torch.raft``) at
+   BASELINE rung 1: 1,024 groups x 3 replicas on 3 hosts, each host's
+   replicas staging into its own coordinator (1,024 rows x 8 slots,
+   device ticks, the read plane and the fold on, the hier rule on a third
+   of the groups), applied back through this script's stand-in for the
+   node (``RaftNode``), every message encoded and decoded by the port's
+   wire codec: the warm-up timed to its latch, elections from followers
+   by device ticks, 24 rounds of 16-byte writes (a tick backlog of 6
+   every sixth round, a quiet round of 16 writers every sixth) with 1
+   group in 8 reading through ReadIndex, then host 1 cut off until its
+   groups elect on hosts 2 and 3 and healed; a CPU deployment runs the
+   same script and equals the card's after every round in every raft,
+   effect, engine tensor and tally; every group ends with one leader,
+   every acknowledged write committed on all 3 replicas and every read
+   released.
 
 Phase 2 also holds the READS instances of K1 and K3 (the read plane)
 against the plain versions at 65,536 x 5 over the flag grids, and at
@@ -122,7 +138,7 @@ as views that start off a 16-byte boundary, and two K2 launches back to
 back on the current stream and on a side stream, whose contacted scratch
 must be all zero after each.  Operation bounds use the
 card's INT32 issue rate, read from ``nvidia-smi`` (``int32_peak``).
-Each of phases 3 to 13 drives a main path: the launch counters are
+Each of phases 3 to 14 drives a main path: the launch counters are
 zeroed just before it and read just after, and every kernel that path
 runs must have launched.  JSON lines report what was measured; the line
 before the last is the card's name and power limit, the last line the
@@ -3423,6 +3439,535 @@ def phase_coordinator(torch, tk, dev, n=COORD_G, rounds=COORD_ROUNDS, live_n=LIV
     }
 
 
+# ----------------------------------------------------------------------
+# phase 14: the port's own Raft groups through the coordinator
+# ----------------------------------------------------------------------
+
+RAFT_G = 1_024         # BASELINE rung 1: 1,024 groups x 3 replicas
+RAFT_HOSTS = 3
+RAFT_ROUNDS = 24
+RAFT_CMD = 16          # BASELINE rung 1's 16-byte proposals
+RAFT_QUIET = 16        # writers of a quiet round (K2)
+RAFT_TICKS = 3         # host ticks a round while groups elect
+RAFT_KERNELS = STEP_KERNELS + ("read_plane", "finish_hier", "telem_fold")
+
+
+class RaftNode:
+    """This script's stand-in for a replica's node over a port ``Peer``.
+
+    Copies the Raft-facing part of ``dragonboat_tpu/node.py:308-470``: the
+    coordinator's ``offload_*`` hooks only flag an effect, and ``apply``
+    takes the flags and applies them with ``_apply_offload_effects``'s
+    scalar guards in its order: ``log.try_commit(q, term)`` on a leader,
+    then ``broadcast_replicate_message``; the term-pinned read releases;
+    the echo fallback; the election under ``hier_election_ok``; the tick
+    flags.  Every raft is ticked every host tick, so the node's catch-up
+    tick has nothing to do here."""
+
+    def __init__(self, wire, peer):
+        self.wire = wire
+        self.peer = peer
+        self.cluster_id = peer.raft.cluster_id
+        self.node_id = peer.raft.node_id
+        self.raft_mu = contextlib.nullcontext()
+        self.effects = []
+        self._commit = 0
+        self._election = None
+        self._hb = self._elect = self._demote = False
+        self._reads = []
+        self._echoes = []
+
+    def offload_commit(self, q, wake=True):
+        self.effects.append(("commit", q))
+        self._commit = max(self._commit, q)
+
+    def offload_election(self, won, term, wake=True):
+        self.effects.append(("election", won, term))
+        self._election = (won, term)
+
+    def offload_read_confirm(self, low, high, term, wake=True):
+        self.effects.append(("read", low, high, term))
+        self._reads.append((low, high, term))
+
+    def offload_read_echo(self, from_, low, high, wake=True):
+        self.effects.append(("echo", from_, low, high))
+        self._echoes.append((from_, low, high))
+
+    def offload_tick_elect(self, wake=True):
+        self.effects.append(("elect",))
+        self._elect = True
+
+    def offload_tick_heartbeat(self, wake=True):
+        self.effects.append(("heartbeat",))
+        self._hb = True
+
+    def offload_tick_demote(self, wake=True):
+        self.effects.append(("demote",))
+        self._demote = True
+
+    def pending(self):
+        return bool(self._commit or self._election or self._hb or self._elect
+                    or self._demote or self._reads or self._echoes)
+
+    def apply(self):
+        w, r = self.wire, self.peer.raft
+        MT = w.MessageType
+        commit_q, self._commit = self._commit, 0
+        election, self._election = self._election, None
+        hb, self._hb = self._hb, False
+        elect, self._elect = self._elect, False
+        demote, self._demote = self._demote, False
+        reads, self._reads = self._reads, []
+        echoes, self._echoes = self._echoes, []
+        if commit_q and r.is_leader() and r.log.try_commit(commit_q, r.term):
+            r._note_commit()
+            if r.hier is not None:
+                voters = r.voting_members()
+                match_of = {nid: rm.match for nid, rm in voters.items()}
+                m_sorted = sorted(match_of.values())
+                q_classic = m_sorted[len(m_sorted) - r.quorum()]
+                r.hier.note_close(via_sub=commit_q > q_classic)
+                r.hier.note_far_lag(match_of, voters.keys(), r.log.committed)
+            r.broadcast_replicate_message()
+        if reads and r.is_leader():
+            for low, high, term in reads:
+                if r.term != term:
+                    continue
+                ctx = w.SystemCtx(low=low, high=high)
+                r.apply_read_releases(r.read_index.release(ctx), ctx)
+        if echoes and r.is_leader():
+            for from_, low, high in echoes:
+                r.handle_read_index_leader_confirmation(
+                    w.Message(from_=from_, hint=low, hint_high=high))
+        if election is not None:
+            won, term = election
+            if r.is_candidate() and r.term == term:
+                if won and r.hier_election_ok():
+                    r.become_leader()
+                    r.broadcast_replicate_message()
+                elif won:
+                    if r.hier is not None:
+                        r.hier.note_election_hold()
+                else:
+                    r.become_follower(r.term, 0)
+        if (elect and r.device_ticks and not r.is_leader() and not r.is_observer()
+                and not r.is_witness() and not r.self_removed()
+                and r.time_for_election()):
+            r.election_tick = 0
+            r.handle(w.Message(from_=self.node_id, type=MT.ELECTION))
+        if hb and r.device_ticks and r.is_leader():
+            r.heartbeat_tick = 0
+            r.handle(w.Message(from_=self.node_id, type=MT.LEADER_HEARTBEAT))
+        if demote and r.device_ticks and r.is_leader() and r.check_quorum:
+            r.election_tick = 0
+            r.handle(w.Message(from_=self.node_id, type=MT.CHECK_QUORUM))
+
+
+class RaftDeployment:
+    """``RAFT_HOSTS`` hosts, each with a replica of every group and its own
+    coordinator on ``dev``; messages cross hosts as the port's wire bytes,
+    encoded by the sender and decoded by the receiver.  ``acc`` gathers the
+    host time of each layer (a timing wrapper of this script): ``raft`` the
+    Raft step and the update cycle (deliveries, ticks, proposals, reads),
+    ``codec`` every encode and decode, ``flush`` the coordinators'
+    ``flush()`` (``engine_acc``: its engine calls), ``apply`` the effects'
+    application and the update cycle it starts; the codec time inside the
+    others is taken out of them."""
+
+    def __init__(self, coord_mod, raft_mod, config_mod, wire, dev, n, seed):
+        self.wire, self.codec = wire, wire.codec
+        self.n = n
+        self.acc = dict.fromkeys(("raft", "codec", "flush", "apply"), 0.0)
+        self.engine_acc = {}
+        self.coords = [coord_mod.QuorumCoordinator(
+            capacity=n, n_peers=COORD_P, drive_ticks=True, drive_reads=True,
+            telem=True, interval_s=60.0, device=dev) for _ in range(RAFT_HOSTS)]
+        # the warm-up, timed to the latches; then the round threads are
+        # parked before any raft stages, so flush() alone groups ops into
+        # rounds and the card and the CPU see the same rounds
+        t0 = time.perf_counter()
+        for t in [c.start_warmup() for c in self.coords]:
+            t.join()
+        self.warmup_s = time.perf_counter() - t0
+        for c in self.coords:
+            check(c.eng.fused_ready and c.warmup_stats["error"] is None,
+                  f"warm-up failed: {c.warmup_stats}")
+            c.stop()
+            _timed_calls(c.eng, ("step", "step_rounds"), self.engine_acc)
+        self.nodes = [dict() for _ in range(RAFT_HOSTS)]
+        self.logdbs = [dict() for _ in range(RAFT_HOSTS)]
+        self.applied = [dict() for _ in range(RAFT_HOSTS)]
+        self.queue = []   # (from host, to host, bytes)
+        self.cut = set()  # (from host, to host) pairs that lose every message
+        self.reads = {}   # ctx low -> cid; released reads leave it
+        self.released = 0
+        addrs = [raft_mod.PeerAddress(h + 1, f"host{h + 1}") for h in range(RAFT_HOSTS)]
+        for cid in range(1, n + 1):
+            hier = cid % 3 == 0
+            for h in range(RAFT_HOSTS):
+                cfg = config_mod.Config(
+                    node_id=h + 1, cluster_id=cid, election_rtt=10, heartbeat_rtt=1,
+                    check_quorum=cid % 4 == 0, hier_commit=hier,
+                    hier_domains={1: "a", 2: "a", 3: "b"} if hier else {})
+                logdb = raft_mod.InMemLogDB()
+                p = raft_mod.Peer.launch(cfg, logdb, None, addrs, initial=True,
+                                         new_node=True, seed=seed * 65_536 + cid * 8 + h)
+                node = RaftNode(wire, p)
+                self.nodes[h][cid], self.logdbs[h][cid] = node, logdb
+                self.applied[h][cid] = 0
+                p.raft.offload = self.coords[h]
+                p.raft.device_ticks = True
+                self.coords[h].register(node)
+                self.process(h, cid)
+
+    def engine_s(self):
+        return self.engine_acc.get("step", 0.0) + self.engine_acc.get("step_rounds", 0.0)
+
+    def rafts(self):
+        for h in range(RAFT_HOSTS):
+            for cid, node in self.nodes[h].items():
+                yield h, cid, node.peer.raft
+
+    def process(self, h, cid):
+        """The node's update cycle on one replica: save, send, apply."""
+        w, codec = self.wire, self.codec
+        p, logdb = self.nodes[h][cid].peer, self.logdbs[h][cid]
+        while p.has_update(True):
+            ud = p.get_update(True, self.applied[h][cid])
+            check(w.is_empty_snapshot(ud.snapshot), f"group {cid}: an unexpected snapshot")
+            if ud.entries_to_save:
+                logdb.append(ud.entries_to_save)
+                logdb.max_index = ud.entries_to_save[-1].index
+            if not w.is_empty_state(ud.state):
+                logdb.set_state(ud.state)
+            t0 = time.perf_counter()
+            out = [(h, m.to - 1, codec.encode_message(m)) for m in ud.messages]
+            self.acc["codec"] += time.perf_counter() - t0
+            self.queue.extend(out)
+            for rtr in ud.ready_to_reads:
+                if self.reads.pop(rtr.system_ctx.low, None) == cid:
+                    self.released += 1
+            for ctx in ud.dropped_read_indexes:
+                # a leader with no commit in its term yet drops a read; the
+                # client asks again at the next round's leader
+                self.reads[ctx.low] = -cid
+            p.commit(ud)
+            applied = self.applied[h][cid]
+            for e in ud.committed_entries:
+                if e.index > applied:
+                    if e.type == w.EntryType.CONFIG_CHANGE:
+                        p.apply_config_change(codec.decode_config_change(e.cmd))
+                    applied = e.index
+            if applied != self.applied[h][cid]:
+                self.applied[h][cid] = applied
+                p.notify_raft_last_applied(applied)
+
+    def deliver_all(self):
+        codec, acc = self.codec, self.acc
+        while self.queue:
+            batch, self.queue = self.queue, []
+            for frm, to, data in batch:
+                if (frm, to) in self.cut:
+                    continue
+                t0 = time.perf_counter()
+                m = codec.decode_message(data)
+                acc["codec"] += time.perf_counter() - t0
+                with self.timed("raft"):
+                    self.nodes[to][m.cluster_id].peer.handle(m)
+                    self.process(to, m.cluster_id)
+
+    @contextlib.contextmanager
+    def timed(self, layer):
+        """Add the block's host time to ``layer``, less the codec time
+        spent inside it."""
+        acc = self.acc
+        c0, t0 = acc["codec"], time.perf_counter()
+        try:
+            yield
+        finally:
+            acc[layer] += time.perf_counter() - t0 - (acc["codec"] - c0)
+
+    def tick(self, count):
+        with self.timed("raft"):
+            for h in range(RAFT_HOSTS):
+                for _ in range(count):
+                    for node in self.nodes[h].values():
+                        node.peer.tick()
+                    self.coords[h].request_tick()
+                for cid in self.nodes[h]:
+                    self.process(h, cid)
+
+    def flush(self):
+        for h in range(RAFT_HOSTS):
+            with self.timed("flush"):
+                self.coords[h].flush()
+            with self.timed("apply"):
+                for cid, node in self.nodes[h].items():
+                    if node.pending():
+                        node.apply()
+                        self.process(h, cid)
+
+    def propose(self, h, cid, cmd):
+        with self.timed("raft"):
+            self.nodes[h][cid].peer.propose_entries([self.wire.Entry(cmd=cmd)])
+            self.process(h, cid)
+
+    def read(self, h, cid, low):
+        with self.timed("raft"):
+            self.reads[low] = cid
+            self.nodes[h][cid].peer.read_index(self.wire.SystemCtx(low=low, high=cid))
+            self.process(h, cid)
+
+    def isolate(self, h):
+        self.cut = {(a, b) for a in range(RAFT_HOSTS) for b in range(RAFT_HOSTS)
+                    if a != b and h in (a, b)}
+
+    def leaders(self):
+        """cid -> host of the leader at the highest term."""
+        best = {}
+        for h, cid, r in self.rafts():
+            if r.is_leader() and (cid not in best or r.term > best[cid][1]):
+                best[cid] = (h, r.term)
+        return {cid: h for cid, (h, _) in best.items()}
+
+    def settled(self):
+        """Every group has one leader that every replica follows."""
+        lead = self.leaders()
+        return len(lead) == self.n and all(
+            self.nodes[h][cid].peer.raft.leader_id == lead[cid] + 1
+            for cid in lead for h in range(RAFT_HOSTS))
+
+    def view(self):
+        """What the card and the CPU must agree on after a round."""
+        rafts = []
+        for h, cid, r in self.rafts():
+            rafts.append((h, cid, int(r.term), int(r.vote), int(r.state), int(r.leader_id),
+                          int(r.log.committed), int(r.log.last_index()), log_sig(r)))
+        effects = [(h, cid, tuple(n.effects)) for h in range(RAFT_HOSTS)
+                   for cid, n in self.nodes[h].items()]
+        tallies = [(c.read_confirms, c.read_fallbacks, c.fused_dispatches)
+                   for c in self.coords]
+        return rafts, effects, tallies
+
+    def clear_effects(self):
+        for h in range(RAFT_HOSTS):
+            for node in self.nodes[h].values():
+                node.effects.clear()
+
+
+def log_sig(r):
+    """``(index, term)`` of every entry in the raft's log view."""
+    lo, hi = r.log.first_index(), r.log.last_index()
+    if hi < lo:
+        return ()
+    return tuple((e.index, e.term) for e in r.log.get_entries(lo, hi + 1, 1 << 62))
+
+
+def _same_deployments(torch, a, b, tag):
+    va, vb = a.view(), b.view()
+    check(va[0] == vb[0], f"{tag}: the rafts differ")
+    check(va[1] == vb[1], f"{tag}: the coordinators' effects differ")
+    check(va[2] == vb[2], f"{tag}: tallies {va[2]} against {vb[2]}")
+    check(a.queue == b.queue and a.reads == b.reads, f"{tag}: the wires differ")
+    for h, (ca, cb) in enumerate(zip(a.coords, b.coords)):
+        ea, eb = ca.eng, cb.eng
+        check(ea._dirty == eb._dirty, f"{tag}: host {h} engine rows staged differ")
+        for name in ea.dev._fields:
+            check(torch.equal(getattr(ea.dev, name).cpu(), getattr(eb.dev, name).cpu()),
+                  f"{tag}: host {h} engine state {name} differs")
+            check(np.array_equal(ea.mirror.arrays[name], eb.mirror.arrays[name]),
+                  f"{tag}: host {h} engine mirror {name} differs")
+        ta, tb = ca.telem_snapshot(), cb.telem_snapshot()
+        check((ta is None) == (tb is None), f"{tag}: a telemetry snapshot is missing")
+        if ta is not None:
+            for key in ta:
+                check(key in ("seq", "mono") or ta[key] == tb[key],
+                      f"{tag}: host {h} telemetry {key} differs")
+    a.clear_effects()
+    b.clear_effects()
+
+
+def phase_raft(torch, tk, dev, n=RAFT_G, rounds=RAFT_ROUNDS, seed=14):
+    """The port's own Raft groups (``dragonboat_tpu_torch.raft``) at BASELINE
+    rung 1: ``n`` groups x 3 replicas on 3 hosts, each host's replicas
+    staging into its own coordinator (``n`` rows x P = 8, device ticks, the
+    read plane and the fold on; the hier rule on a third of the groups),
+    every message through the port's wire codec.  A CPU deployment runs the
+    same script; after every round the two agree in every raft, effect,
+    engine tensor, tally and telemetry snapshot.  (1) warm-up, timed to its
+    latch; (2) election from followers only, by device ticks; (3)
+    ``rounds`` rounds: every leader proposes one 16-byte entry (a quiet
+    round: RAFT_QUIET leaders), 1 group in 8 reads through ReadIndex, a
+    tick backlog of 6 every sixth round; (4) host 1 cut off until its
+    leaders' groups elect on hosts 2 and 3, then healed until it follows.
+    Every group must end with one leader, every acknowledged write
+    committed on all 3 replicas with equal logs, every read released."""
+    from dragonboat_tpu_torch import config as config_mod
+    from dragonboat_tpu_torch import coordinator as coord_mod
+    from dragonboat_tpu_torch import raft as raft_mod
+    from dragonboat_tpu_torch import wire
+
+    t_phase = time.perf_counter()
+    sides = []
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sides.append(RaftDeployment(coord_mod, raft_mod, config_mod, wire, d, n, seed))
+        sides[-1].setup_s = time.perf_counter() - t0
+    card, cpu = sides
+    for side in sides:
+        side.flush()
+    _same_deployments(torch, card, cpu, "registration")
+    round_ms, split = [], {k: [] for k in ("raft", "codec", "flush", "engine", "apply")}
+    state = {"rounds": 0}
+    after_warm = tk.launch_counts()
+
+    def layer_marks():
+        return dict(card.acc, engine=card.engine_s())
+
+    def one_round(tag, ticks=1, staged_s=0.0, marks=None):
+        """One round on both deployments; the card's wall time and its
+        split by layer, from ``marks`` on (the staging before the round,
+        ``staged_s`` seconds of it, counts in)."""
+        marks = marks or layer_marks()
+        for side in sides:
+            t0 = time.perf_counter()
+            side.deliver_all()
+            side.tick(ticks)
+            side.deliver_all()
+            side.flush()
+            side.deliver_all()
+            if side is card:
+                round_ms.append((time.perf_counter() - t0 + staged_s) * 1e3)
+        for k in split:
+            now = card.engine_s() if k == "engine" else card.acc[k]
+            split[k].append((now - marks[k]) * 1e3)
+        state["rounds"] += 1
+        _same_deployments(torch, card, cpu, f"{tag} round {state['rounds']}")
+
+    # election from followers only, by device ticks
+    t0 = time.perf_counter()
+    for _ in range(60):
+        one_round("election", ticks=RAFT_TICKS)
+        if card.settled():
+            break
+    check(card.settled(), f"{n - len(card.leaders())} groups without a leader")
+    election = {"rounds": state["rounds"], "seconds": time.perf_counter() - t0,
+                "terms": sorted({int(r.term) for _, _, r in card.rafts()})}
+    # writes and reads
+    n0 = state["rounds"]
+    reads_before = card.released
+    acked = 0
+    for rnd in range(rounds):
+        quiet, backlog = rnd % 6 == 2, rnd % 6 == 5
+        lead = card.leaders()
+        cids = sorted(lead)[:RAFT_QUIET] if quiet else sorted(lead)
+        marks = layer_marks()
+        for side in sides:
+            t0 = time.perf_counter()
+            for cid in cids:
+                side.propose(lead[cid], cid, bytes([rnd]) * 8 + cid.to_bytes(8, "little"))
+            if not quiet:
+                for low, cid in sorted(side.reads.items()):
+                    if cid < 0:  # dropped: ask the group's leader again
+                        side.read(lead[-cid], -cid, low)
+                for cid in cids:
+                    if cid % 8 == rnd % 8:
+                        side.read(lead[cid], cid, (rnd + 1) * 1_000_000 + cid)
+            if side is card:
+                staged_s = time.perf_counter() - t0
+        acked += len(cids)
+        one_round("writes", ticks=6 if backlog else 1, staged_s=staged_s, marks=marks)
+    for _ in range(4):  # the last round's commits and reads land
+        if not card.reads and all(r.log.committed == r.log.last_index()
+                                  for _, _, r in card.rafts()):
+            break
+        one_round("writes-drain")
+    write_rounds = state["rounds"] - n0
+    writes_s = sum(round_ms[n0:]) / 1e3  # the card's deployment alone
+    reads_released = card.released - reads_before
+    check(not card.reads, f"{len(card.reads)} reads not released")
+    after_writes = {cid: (h, card.nodes[h][cid].peer.raft.log.committed)
+                    for cid, h in card.leaders().items()}
+    # host 1 cut off, its leaders' groups elect again on hosts 2 and 3
+    lost = 0
+    moved = [cid for cid, h in card.leaders().items() if h == lost]
+    check(moved, "host 1 leads no group")
+    for side in sides:
+        side.isolate(lost)
+    n1 = state["rounds"]
+    for _ in range(40):
+        one_round("partition", ticks=RAFT_TICKS)
+        lead = card.leaders()
+        if all(lead.get(cid) not in (None, lost) for cid in moved):
+            break
+    lead = card.leaders()
+    check(all(lead.get(cid) not in (None, lost) for cid in moved),
+          f"{sum(lead.get(c) in (None, lost) for c in moved)} of {len(moved)} "
+          "groups did not elect on hosts 2 and 3")
+    for side in sides:
+        for cid in moved:
+            side.propose(lead[cid], cid, b"partition" + cid.to_bytes(7, "little"))
+    acked += len(moved)
+    one_round("partition")
+    partition_rounds = state["rounds"] - n1
+    for side in sides:
+        side.cut = set()
+    n2 = state["rounds"]
+    for _ in range(60):
+        one_round("heal", ticks=RAFT_TICKS)
+        if card.settled() and all(r.log.committed == r.log.last_index()
+                                  for _, _, r in card.rafts()):
+            break
+    heal_rounds = state["rounds"] - n2
+    # every group: one leader, every acked write committed on all replicas
+    check(card.settled(), "groups without a leader that all replicas follow after the heal")
+    for cid in range(1, n + 1):
+        sigs = {log_sig(card.nodes[h][cid].peer.raft) for h in range(RAFT_HOSTS)}
+        commits = {card.nodes[h][cid].peer.raft.log.committed for h in range(RAFT_HOSTS)}
+        check(len(sigs) == 1 and len(commits) == 1,
+              f"group {cid}: replicas disagree after the heal")
+        r = card.nodes[0][cid].peer.raft
+        check(r.log.committed == r.log.last_index(), f"group {cid}: entries not committed")
+        h, q = after_writes[cid]
+        check(r.log.committed >= q, f"group {cid}: acknowledged writes lost")
+    counts = tk.launch_counts()
+    scripted = {k: counts[k] - after_warm[k] for k in counts}
+    for name in RAFT_KERNELS:
+        check(scripted[name] > 0, f"{name} never launched by the raft rounds")
+    cmds = 0
+    for cid in range(1, n + 1):
+        r = card.nodes[0][cid].peer.raft
+        cmds += sum(1 for e in r.log.get_entries(r.log.first_index(), r.log.last_index() + 1,
+                                                  1 << 62) if len(e.cmd) == RAFT_CMD)
+    check(cmds == acked, f"{cmds} 16-byte entries committed of {acked} proposed")
+    acc = card.acc
+    total = sum(round_ms) / 1e3
+    return {
+        "phase": "raft", "groups": n, "replicas": RAFT_HOSTS, "peers": COORD_P,
+        "rounds": state["rounds"], "setup_s": card.setup_s, "setup_s_cpu": cpu.setup_s,
+        "warmup_s": card.warmup_s, "warmup_s_cpu": cpu.warmup_s,
+        "warmup": dict(card.coords[0].warmup_stats),
+        "election": election, "write_rounds": write_rounds,
+        "partition_rounds": partition_rounds, "heal_rounds": heal_rounds,
+        "moved_groups": len(moved),
+        "round_ms_p50": _p(round_ms, 50), "round_ms_p99": _p(round_ms, 99),
+        **{f"{k}_ms_p50": _p(v, 50) for k, v in split.items()},
+        **{f"{k}_ms_p99": _p(v, 99) for k, v in split.items()},
+        "share": {k: sum(v) / 1e3 / total for k, v in split.items()},
+        "host_s": {k: acc[k] for k in acc}, "round_ms": round_ms,
+        "committed_writes": acked,
+        "committed_writes_per_s": acked / writes_s if writes_s else None,
+        "reads_released": reads_released,
+        "confirmed_reads_per_s": reads_released / writes_s if writes_s else None,
+        "writes_s": writes_s,
+        "read_confirms": [c.read_confirms for c in card.coords],
+        "read_fallbacks": [c.read_fallbacks for c in card.coords],
+        "fused_dispatches": [c.fused_dispatches for c in card.coords],
+        "scripted_launches": scripted,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
 def _registers(log):
     """The most registers any instance of each source uses (nvcc's
     ``-Xptxas -v`` report, kept by the build)."""
@@ -3543,6 +4088,7 @@ def main(argv) -> int:
                   MULTISTEPS)
         main_path("coordinator", lambda: emit(phase_coordinator(torch, tk, dev)),
                   COORD_KERNELS)
+        main_path("raft", lambda: emit(phase_raft(torch, tk, dev)), RAFT_KERNELS)
         if only is not None:
             check(only <= ran, f"no main path named {sorted(only - ran)}")
             emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -29,6 +29,10 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import dragonboat_tpu_torch.coordinator, dragonboat_tpu_torch.lease\n"
         "import dragonboat_tpu_torch.statemachine, dragonboat_tpu_torch.raft.hier\n"
         "import dragonboat_tpu_torch.devsm\n"
+        "import dragonboat_tpu_torch.settings, dragonboat_tpu_torch.config\n"
+        "import dragonboat_tpu_torch.wire, dragonboat_tpu_torch.wire.codec\n"
+        "import dragonboat_tpu_torch.raft, dragonboat_tpu_torch.raft.raft\n"
+        "import dragonboat_tpu_torch.raft.peer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dragonboat_tpu'))\n"
         "print(repr(bad))\n"
